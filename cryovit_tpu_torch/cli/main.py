@@ -1,0 +1,99 @@
+"""``cryovit-torch`` command-line interface (port of ``cryovit_tpu/cli/main.py``).
+
+The verbs and flags follow the JAX package's ``cryovit``. Ported so far:
+``features`` (DINOv2 extraction) and ``infer --fused`` (raw tomograms →
+masks). ``train``, ``evaluate`` and file-based ``infer`` exit with a
+"not yet ported" message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from pathlib import Path
+
+__all__ = ["main"]
+
+_NOT_PORTED = 2
+
+
+def _parser() -> argparse.ArgumentParser:
+    from cryovit_tpu_torch import __version__
+
+    parser = argparse.ArgumentParser(
+        prog="cryovit-torch",
+        description="Cryo-electron tomogram segmentation (DINOv2 features + "
+        "CryoVIT) on PyTorch and hand-written Hopper kernels.",
+    )
+    parser.add_argument("--version", action="version", version=f"cryovit_tpu_torch {__version__}")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("features", help="Compute DINOv2 features for a set of tomograms.")
+    p.add_argument("tomograms", help="Folder or .txt manifest of tomograms to process.")
+    p.add_argument("result_folder", help="Folder where the DINO features are saved.")
+    p.add_argument("--batch-size", type=int, default=64, help="Slices per extraction step.")
+    p.add_argument("--random-init", action="store_true", help=argparse.SUPPRESS)
+
+    p = sub.add_parser("infer", help="Segment tomograms with a trained model.")
+    p.add_argument("tomograms", help="Folder or .txt manifest of tomograms.")
+    p.add_argument("--model", required=True, help="Path to the trained .model file.")
+    p.add_argument("--result-folder", default=None)
+    p.add_argument("--threshold", type=float, default=0.5,
+                   help="Probability threshold for binary segmentation.")
+    p.add_argument("--fused", action="store_true",
+                   help="Run the fused DINOv2+decoder pipeline directly on raw "
+                        "tomograms (CryoVIT models; no feature files needed).")
+    p.add_argument("--random-init", action="store_true", help=argparse.SUPPRESS)
+
+    for verb in ("train", "evaluate"):
+        p = sub.add_parser(verb, help=f"{verb} (not yet ported to cryovit_tpu_torch)")
+        p.add_argument("args", nargs=argparse.REMAINDER)
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = _parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+
+    if args.command in ("train", "evaluate") or (args.command == "infer" and not args.fused):
+        verb = "infer without --fused" if args.command == "infer" else args.command
+        print(
+            f"cryovit-torch: {verb} is not yet ported to cryovit_tpu_torch; "
+            "use the JAX package's `cryovit` for it.",
+            file=sys.stderr,
+        )
+        return _NOT_PORTED
+
+    from cryovit_tpu_torch.io import load_files_from_path
+
+    if args.command == "features":
+        from cryovit_tpu_torch.run.dino_features import run_dino
+
+        tomo_path = Path(args.tomograms)
+        if not tomo_path.exists():
+            raise FileNotFoundError(f"Tomograms path {tomo_path} does not exist.")
+        result = Path(args.result_folder)
+        result.mkdir(parents=True, exist_ok=True)
+        run_dino(
+            load_files_from_path(tomo_path), result,
+            batch_size=args.batch_size, random_init=args.random_init,
+        )
+        return 0
+
+    from cryovit_tpu_torch.run.infer_model import run_inference
+
+    written = run_inference(
+        data=load_files_from_path(Path(args.tomograms)),
+        model_path=Path(args.model),
+        result_dir=Path(args.result_folder or "."),
+        threshold=args.threshold,
+        fused=True,
+        random_init=args.random_init,
+    )
+    print(f"wrote {len(written)} segmentations")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
