@@ -6,26 +6,44 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — a CUDA device is required (there is no CPU path); prints the
    card's name and power limit from nvidia-smi.
-2. build   — builds the hand-written kernels from ``cryovit_tpu_torch/csrc``.
+2. build   — builds the hand-written kernels from ``cryovit_tpu_torch/csrc``
+   (one nvcc per source, started together).
 3. kernels — each kernel against its plain PyTorch version, in bf16, at the
-   shapes the serving path gives it for a 64×512×512 tomogram, with kernel
-   and plain times from CUDA events.
+   shapes its main paths give it: the forward kernels at the serving path's
+   shapes for a 64×512×512 tomogram; at the training crop's (128×512×512
+   labels) the backward kernels and conv3d_dm's twelve calls of a train
+   step (forward, and input gradient with flipped, in/out-swapped taps). Kernel, plain and library times from CUDA
+   events, and the least time the card could take (``bound_ms``).
 4. reference — the serving path on the GPU (bf16, kernels) against the same
    path on the CPU (f32, plain versions) on a small input.
-5. main path — a synthetic 64×512×512 uint8 tomogram written as MRC; the
-   full-width DINOv2 ViT-g/14 with seeded random weights and a seeded CryoVIT
-   decoder saved as a ``.model``; fused inference (raw tomogram → masks) and
-   feature extraction on it. Launch counters are zeroed just before and read
-   just after; every kernel must have run.
+5. train reference — one train step of the full-width decoder on a small
+   input, GPU bf16 through the kernels against CPU f32 through the plain
+   versions: the probabilities, the Dice loss and every parameter's
+   gradient.
+6. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
+   the full-width DINOv2 ViT-g/14 with seeded random weights and a seeded
+   CryoVIT decoder saved as a ``.model``; fused inference (raw tomogram →
+   masks) and feature extraction on it.
+7. training main path — a synthetic 128×512×512 tomogram of bright blobs on
+   noise, its ViT-g/14 features and blob labels; ``Trainer.fit`` of the
+   full-width decoder in bf16 for 8 epochs with SWA and validation through
+   the port's FileDataModule, DataLoader and collate; the trained decoder
+   saved as a ``.model`` and served by fused inference on the same
+   tomogram. One isolated train step's launches, the step time (median of
+   5) and a profile of one step.
 
-The next-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+Launch counters are zeroed just before each main path and read just after;
+every kernel of a path must have run. The next-to-last line is the card's
+name and power limit, the one before it a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -33,13 +51,16 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 # f32 products in the plain versions and the CPU reference run in full f32
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-DEPTH, SIDE = 64, 512  # the main path's tomogram
+DEPTH, SIDE = 64, 512  # the serving path's tomogram
 SLICE_BATCH = 64
+TRAIN_DEPTH = 128  # the reference training crop: 128 slices of 512² voxels
+TRAIN_EPOCHS = 8
 ATTN_SHAPE = (64, 1029, 24)  # (slices per chunk, tokens at 512², heads of 64)
 # (Ci, Co, H = W, depth dilation) of every conv3d_dm call for a 512² tomogram
 CONV_SHAPES = [(32, 32, 128, 8), (32, 32, 128, 4), (32, 16, 256, 2), (16, 16, 256, 1),
@@ -51,7 +72,18 @@ KERNELS = {
                         "cryovit_tpu/ops/flash_attention.py:226"),
     "conv3d_dm": ("cryovit_tpu_torch/csrc/conv3d_dm.cu", "cryovit_tpu/ops/conv3d_dm.py:162"),
     "convt2x_dm": ("cryovit_tpu_torch/csrc/convt_dm.cu", "cryovit_tpu/ops/convt_dm.py:74"),
+    "conv3d_dm_dw": ("cryovit_tpu_torch/csrc/conv3d_dm_dw.cu",
+                     "cryovit_tpu/ops/conv3d_dm.py:272"),
+    "convt2x_dm_bwd": ("cryovit_tpu_torch/csrc/convt_dm_bwd.cu",
+                       "cryovit_tpu/ops/convt_dm.py:162"),
 }
+# one train step of the decoder: 6 tail convs forward and 6 input gradients
+# through conv3d_dm, 6 weight gradients, 2 ConvTransposes each way
+TRAIN_STEP_LAUNCHES = {"flash_attention": 0, "conv3d_dm": 12, "convt2x_dm": 2,
+                       "conv3d_dm_dw": 6, "convt2x_dm_bwd": 2}
+# H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -79,19 +111,46 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def compare(name: str, kernel_fn, plain_fn, iters: int) -> tuple[float, float, float]:
-    """Kernel vs plain version on the same inputs: max |error| (checked at
-    four bf16 ulps of the largest output, 2^-6·max|plain|), kernel ms,
-    plain ms."""
-    got, want = kernel_fn().float(), plain_fn().float()
+def with_bound(row: dict, n_bytes: float, flops: float) -> dict:
+    """``row`` with the least time the card could take for the work:
+    the larger of the bytes (each input read once, each output written
+    once) over the memory rate and the operations over the bf16
+    tensor-core peak, and which of the two it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return dict(row, bytes=n_bytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(name, kernel_fn, plain_fn, library_fn, iters, rel_tols=(2.0**-6,)):
+    """Kernel vs plain version on the same inputs, output by output: max
+    |error| within ``rel_tol``·max|plain| (2^-6, four bf16 ulps of the
+    largest value, for bf16 outputs); then kernel, plain and library ms."""
+    got, want = kernel_fn(), plain_fn()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    tol = 2.0**-6 * want.abs().max().item()
-    if not (err <= tol and torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: kernel vs plain max |err| {err} > tol {tol}")
+    err = 0.0
+    for g, w, tol in zip(got, want, rel_tols, strict=True):
+        g, w = g.float(), w.float()
+        e = (g - w).abs().max().item()
+        limit = tol * w.abs().max().item()
+        if not (e <= limit and torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: kernel vs plain max |err| {e} > tol {limit}")
+        err = max(err, e)
     del got, want
     k_ms, p_ms = time_ms(kernel_fn, iters), time_ms(plain_fn, max(1, iters // 4))
-    return err, k_ms, p_ms
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=time_ms(library_fn, iters))
+
+
+def _accumulate(total: dict | None, row: dict) -> dict:
+    """Sum of the rows of one kernel's shapes (one pass of its path): times,
+    bytes and operations add, the bound is that of the summed work, the
+    error is the largest."""
+    if total is None:
+        return row
+    summed = {k: total[k] + row[k] for k in ("ms", "plain_ms", "library_ms")}
+    summed["max_abs_err"] = max(total["max_abs_err"], row["max_abs_err"])
+    return with_bound(summed, total["bytes"] + row["bytes"], total["flops"] + row["flops"])
 
 
 def kernel_phase(dev: torch.device) -> dict[str, dict]:
@@ -100,9 +159,13 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
     from cryovit_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
 
     def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    def cf(t):  # depth-major (B, D, C, H, W) → channels-first for cuDNN
+        return t.transpose(1, 2).contiguous()
 
     results = {}
     b, n, h = ATTN_SHAPE
@@ -110,49 +173,150 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
     qkv = randn(b, n, 3 * c)  # q, k, v as column views, as the model passes them
     q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
     bias = randn(3, c, scale=0.5)
-    err, k_ms, p_ms = compare(
+    qh, kh, vh = ((t + bias[i]).view(b, n, h, fa.HEAD_DIM).transpose(1, 2).contiguous()
+                  for i, t in enumerate((q, k, v)))
+    row = compare(
         "flash_attention",
         lambda: fa.flash_attention(q, k, v, bias, h),
         lambda: fa.flash_attention_reference(q, k, v, bias, h),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh),
         iters=10,
     )
     flops = 4 * b * h * n * n * fa.HEAD_DIM
-    log("kernels", f"flash_attention B={b} N={n} H={h}x64: max|err| {err:.3g}, "
-        f"kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} ms")
-    results["flash_attention"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
-    del qkv, q, k, v
+    row = with_bound(row, 2 * (4 * b * n * c + 3 * c), flops)
+    log("kernels", f"flash_attention B={b} N={n} H={h}x64: max|err| {row['max_abs_err']:.3g}, "
+        f"kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+        f"(scaled_dot_product_attention, (B, H, N, 64) bf16), bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    results["flash_attention"] = row
+    del qkv, q, k, v, qh, kh, vh
 
-    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    for ci, co, side, dil in CONV_SHAPES:
-        x = randn(1, DEPTH, ci, side, side)
-        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
-        err, k_ms, p_ms = compare(
+    def conv_flops(ci, co, side, dil, depth):
+        # depth taps whose plane is in range: depth + 2·max(depth − dil, 0)
+        return 2 * 9 * ci * co * side * side * (depth + 2 * max(depth - dil, 0))
+
+    def conv_row(x, w, dil, what):
+        """conv3d_dm against its plain version and F.conv3d on x (B, D, Ci, H, W)."""
+        _, depth, ci, side, _ = x.shape
+        co = w.shape[-1]
+        x_cf, w_cf = cf(x), w.permute(4, 3, 0, 1, 2).contiguous()
+        row = compare(
             "conv3d_dm",
             lambda: cd.conv3d_dm(x, w, (dil, 1, 1)),
             lambda: cd.conv3d_dm_reference(x, w, (dil, 1, 1)),
-            iters=8,
+            lambda: F.conv3d(x_cf, w_cf, padding=(dil, 1, 1), dilation=(dil, 1, 1)),
+            iters=8 if depth == DEPTH else 4,
         )
-        log("kernels", f"conv3d_dm {ci}->{co} at {DEPTH}x{side}^2 dil {dil}: max|err| "
-            f"{err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        total = dict(max_abs_err=max(total["max_abs_err"], err), ms=total["ms"] + k_ms,
-                     plain_ms=total["plain_ms"] + p_ms)
+        row = with_bound(row, 2 * (ci + co) * depth * side * side + 2 * 27 * ci * co,
+                         conv_flops(ci, co, side, dil, depth))
+        log("kernels", f"conv3d_dm {what} {ci}->{co} at {depth}x{side}^2 dil {dil}: max|err| "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.3f} ms (F.conv3d, channels-first bf16), "
+            f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+        return row
+
+    total = None
+    for ci, co, side, dil in CONV_SHAPES:
+        x = randn(1, DEPTH, ci, side, side)
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+        total = _accumulate(total, conv_row(x, w, dil, "forward"))
     results["conv3d_dm"] = total
 
-    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    # one train step's 12 calls at the training crop: each tail conv forward,
+    # and its input gradient, the same kernel on g with the taps flipped and
+    # Ci, Co swapped (the mask head's makes Ci = 1)
+    total = None
+    for ci, co, side, dil in CONV_SHAPES:
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+        x = randn(1, TRAIN_DEPTH, ci, side, side)
+        total = _accumulate(total, conv_row(x, w, dil, "forward"))
+        gy = randn(1, TRAIN_DEPTH, co, side, side)
+        w_dx = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+        total = _accumulate(total, conv_row(gy, w_dx, dil, "input gradient"))
+        del x, gy
+    results["conv3d_dm_train_step"] = total
+    results["conv3d_dm"]["max_abs_err"] = max(total["max_abs_err"],
+                                              results["conv3d_dm"]["max_abs_err"])
+    log("kernels", f"conv3d_dm per train step (12 calls at {TRAIN_DEPTH}x{SIDE}^2): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms ({total['bound_by']})")
+
+    total = None
     for ci, co, side in CONVT_SHAPES:
         x = randn(1, DEPTH, ci, side, side)
         w = randn(1, 2, 2, ci, co, scale=ci**-0.5)
-        err, k_ms, p_ms = compare(
+        x_cf, w_t = cf(x), w[0].flip(0, 1).permute(2, 3, 0, 1)[:, :, None].contiguous()
+        row = compare(
             "convt2x_dm", lambda: ct.convt2x_dm(x, w), lambda: ct.convt2x_dm_reference(x, w),
-            iters=8,
+            lambda: F.conv_transpose3d(x_cf, w_t, stride=(1, 2, 2)), iters=8,
         )
+        voxels = DEPTH * side * side
+        row = with_bound(row, 2 * (ci + 4 * co) * voxels + 2 * 4 * ci * co, 8 * ci * co * voxels)
         log("kernels", f"convt2x_dm {ci}->{co} at {DEPTH}x{side}^2 -> {2 * side}^2: max|err| "
-            f"{err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        total = dict(max_abs_err=max(total["max_abs_err"], err), ms=total["ms"] + k_ms,
-                     plain_ms=total["plain_ms"] + p_ms)
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.3f} ms (F.conv_transpose3d, channels-first bf16), "
+            f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+        total = _accumulate(total, row)
     results["convt2x_dm"] = total
-    log("kernels", "conv3d_dm and convt2x_dm ms are sums over the shapes above "
-        "(one decoder tail pass); flash_attention ms is one call (one block, one chunk)")
+
+    # the backward kernels at the training crop's shapes
+    conv_bwd = torch.ops.aten.convolution_backward
+    total = None
+    for ci, co, side, dil in CONV_SHAPES:
+        x = randn(1, TRAIN_DEPTH, ci, side, side)
+        gy = randn(1, TRAIN_DEPTH, co, side, side)
+        x_cf, g_cf = cf(x), cf(gy)
+        w_cf = torch.empty(co, ci, 3, 3, 3, device=dev, dtype=bf)
+        row = compare(
+            "conv3d_dm_dw",
+            lambda: cd.conv3d_dm_dw(x, gy, (dil, 1, 1)),
+            lambda: cd.conv3d_dm_dw_reference(x, gy, (dil, 1, 1)),
+            lambda: conv_bwd(g_cf, x_cf, w_cf, None, [1, 1, 1], [dil, 1, 1], [dil, 1, 1],
+                             False, [0, 0, 0], 1, [False, True, False]),
+            iters=4, rel_tols=(1e-3,),
+        )
+        voxels = TRAIN_DEPTH * side * side
+        row = with_bound(row, 2 * (ci + co) * voxels + 4 * 27 * ci * co,
+                         conv_flops(ci, co, side, dil, TRAIN_DEPTH))
+        log("kernels", f"conv3d_dm_dw {ci}->{co} at {TRAIN_DEPTH}x{side}^2 dil {dil}: max|err| "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.3f} ms (aten.convolution_backward weight, "
+            f"channels-first bf16), bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+        total = _accumulate(total, row)
+        del x, gy, x_cf, g_cf
+    results["conv3d_dm_dw"] = total
+
+    total = None
+    for ci, co, side in CONVT_SHAPES:
+        x = randn(1, TRAIN_DEPTH, ci, side, side)
+        gy = randn(1, TRAIN_DEPTH, co, 2 * side, 2 * side)
+        w = randn(1, 2, 2, ci, co, scale=ci**-0.5)
+        x_cf, g_cf = cf(x), cf(gy)
+        w_t = w[0].flip(0, 1).permute(2, 3, 0, 1)[:, :, None].contiguous()
+        row = compare(
+            "convt2x_dm_bwd",
+            lambda: ct.convt2x_dm_bwd(gy, x, w),
+            lambda: ct.convt2x_dm_bwd_reference(gy, x, w),
+            lambda: conv_bwd(g_cf, x_cf, w_t, None, [1, 2, 2], [0, 0, 0], [1, 1, 1],
+                             True, [0, 0, 0], 1, [True, True, False]),
+            iters=4, rel_tols=(2.0**-6, 1e-3),
+        )
+        voxels = TRAIN_DEPTH * side * side
+        row = with_bound(row, 2 * (2 * ci + 4 * co) * voxels + 2 * 4 * ci * co
+                         + 4 * 4 * ci * co, 16 * ci * co * voxels)
+        log("kernels", f"convt2x_dm_bwd {ci}->{co} at {TRAIN_DEPTH}x{side}^2: max|err| "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.3f} ms (aten.convolution_backward input+weight, "
+            f"channels-first bf16), bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+        total = _accumulate(total, row)
+        del x, gy, x_cf, g_cf
+    results["convt2x_dm_bwd"] = total
+    log("kernels", "ms of the four conv kernels are sums over the shapes above (one decoder "
+        f"tail pass: forward at {DEPTH} slices, backward at {TRAIN_DEPTH}; conv3d_dm's "
+        f"JSON ms is the serving pass, its max|err| covers the train step's calls too); "
+        "flash_attention ms is one call (one block, one chunk)")
+    torch.cuda.empty_cache()
     return results
 
 
@@ -188,7 +352,57 @@ def reference_phase(dev: torch.device) -> None:
         raise AssertionError(f"GPU path disagrees with the CPU reference: {err}")
 
 
-def main_path_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
+def train_reference_phase(dev: torch.device) -> None:
+    """One train step on 4 slices of an 8x8 patch grid of 1536 channels
+    (labels 4x128x128, the first slice unlabeled), the full-width decoder
+    from the same seeded weights, its mask head scaled to spread the
+    probabilities over (0, 1): GPU bf16 through the kernels vs CPU f32
+    through the plain versions. Probabilities within 2e-2, Dice loss within
+    2e-4; each parameter's gradient within relative L2 error 5e-2, or within
+    5e-2 of the largest gradient norm for a tensor whose CPU gradient norm
+    is below 1e-3 of it."""
+    from cryovit_tpu_torch.models.cryovit import make_cryovit, random_cryovit_state_dict
+    from cryovit_tpu_torch.models.losses import dice_loss
+
+    sd = random_cryovit_state_dict(torch.Generator().manual_seed(5))
+    sd["output_layer.2.weight"] *= 100.0  # probabilities' std 0.1 instead of 0.001
+    gen = torch.Generator().manual_seed(6)
+    feats = torch.randn(1, 4, 8, 8, 1536, generator=gen)
+    label = (torch.rand(1, 4, 128, 128, generator=gen) > 0.7).to(torch.int8)
+    label[:, 0] = -1
+    out = {}
+    for device, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        model = make_cryovit(sd, device=device, dtype=dtype, trainable=True)
+        y = label.to(device)
+        probs = model(feats.to(device))
+        loss = dice_loss(probs, y, y > -1)
+        loss.backward()
+        out[device.type] = (probs.detach().float().cpu(), loss.item(),
+                            {n: p.grad.float().cpu() for n, p in model.named_parameters()})
+    (p_gpu, loss_gpu, g_gpu), (p_cpu, loss_cpu, g_cpu) = out["cuda"], out["cpu"]
+    dprob = (p_gpu - p_cpu).abs().max().item()
+    largest = max(g.norm().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for name, want in g_cpu.items():
+        diff = (g_gpu[name] - want).norm().item()
+        norm = want.norm().item()
+        rel = diff / (norm if norm >= 1e-3 * largest else largest)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log("train-ref", f"4 slices x 8x8 patches, full decoder, one step: max|dprob| {dprob:.3g} "
+        f"(tol 2e-2, prob std {p_cpu.std().item():.3f}); Dice loss GPU bf16 {loss_gpu:.6f} vs "
+        f"CPU f32 {loss_cpu:.6f}, |diff| {abs(loss_gpu - loss_cpu):.3g} (tol 2e-4); worst "
+        f"gradient relative L2 error {worst:.4g} at {worst_name} (tol 5e-2) over "
+        f"{len(g_cpu)} tensors")
+    if not dprob <= 2e-2:
+        raise AssertionError(f"train step probabilities disagree: max |diff| {dprob}")
+    if not abs(loss_gpu - loss_cpu) <= 2e-4:
+        raise AssertionError(f"train step loss disagrees: {loss_gpu} vs {loss_cpu}")
+    if not worst <= 5e-2:
+        raise AssertionError(f"gradient of {worst_name} disagrees: relative error {worst}")
+
+
+def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     import importlib.util
 
     import numpy as np
@@ -215,7 +429,7 @@ def main_path_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
                                       slice_batch=SLICE_BATCH)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in segmenter.backbone.parameters())
-    log("main", f"ViT-g/14 ({n_params / 1e9:.3f} B params, "
+    log("serve", f"ViT-g/14 ({n_params / 1e9:.3f} B params, "
         f"{segmenter.backbone.pos_embed.dtype}) + CryoVIT decoder from {model_path.name} "
         f"built in {time.perf_counter() - t0:.1f} s")
     segmenter.segment(torch.zeros(8, SIDE, SIDE))  # warm-up: library heuristics, allocator
@@ -239,12 +453,12 @@ def main_path_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     masks = threshold_masks(probs, 0.5)
     _, _, feats = extracted[0]
     name = torch.cuda.get_device_name(0)
-    log("main", f"fused inference: {DEPTH} slices in {t_infer:.3f} s = "
+    log("serve", f"fused inference: {DEPTH} slices in {t_infer:.3f} s = "
         f"{DEPTH / t_infer:.2f} slices/s ({name})")
-    log("main", f"feature extraction: {DEPTH} slices in {t_feat:.3f} s = "
+    log("serve", f"feature extraction: {DEPTH} slices in {t_feat:.3f} s = "
         f"{DEPTH / t_feat:.2f} slices/s ({name})")
-    log("main", f"peak device memory {peak / 2**30:.2f} GiB ({name})")
-    log("main", f"launches during the main path: {counts}")
+    log("serve", f"peak device memory {peak / 2**30:.2f} GiB ({name})")
+    log("serve", f"launches during the serving path: {counts}")
     checks = {
         f"probabilities {(DEPTH, SIDE, SIDE)}": probs.shape == (DEPTH, SIDE, SIDE),
         "probabilities finite": bool(np.isfinite(probs).all()),
@@ -253,17 +467,16 @@ def main_path_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         f"features {(1536, DEPTH, SIDE // 16, SIDE // 16)} fp16":
             feats.shape == (1536, DEPTH, SIDE // 16, SIDE // 16) and feats.dtype == np.float16,
         "features finite": bool(np.isfinite(feats).all()),
-        "every kernel launched": all(n > 0 for n in counts.values()),
+        "every forward kernel launched": all(
+            counts[k] > 0 for k in ("flash_attention", "conv3d_dm", "convt2x_dm")
+        ),
     }
-    log("main", f"probabilities mean {probs.mean():.4f} std {probs.std():.4f}, "
+    log("serve", f"probabilities mean {probs.mean():.4f} std {probs.std():.4f}, "
         f"mask fraction {masks.mean():.4f}")
-    for what, ok in checks.items():
-        log("check", f"{what}: {'ok' if ok else 'FAILED'}")
-    if not all(checks.values()):
-        raise AssertionError("main path checks failed")
+    _report_checks(checks, "serving path")
 
     if importlib.util.find_spec("h5py") is None:
-        log("main", "h5py is not installed here: the HDF5 writers (PredictionWriter, "
+        log("serve", "h5py is not installed here: the HDF5 writers (PredictionWriter, "
             "save_feature_hdf) are not run; the results above come from "
             "fused_predictions and extract_features, the steps right below them")
     else:
@@ -271,8 +484,242 @@ def main_path_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         writer.on_predict_batch_end(predictions[0])
         path, volume, feats = extracted[0]
         save_feature_hdf({"data": volume}, feats, f"{path.stem}.hdf", workdir / "features")
-        log("main", f"wrote {writer.result_paths[0].name} and features/{path.stem}.hdf")
+        log("serve", f"wrote {writer.result_paths[0].name} and features/{path.stem}.hdf")
+    del segmenter, extractor
+    torch.cuda.empty_cache()
     return counts
+
+
+def _report_checks(checks: dict[str, bool], what: str) -> None:
+    for item, ok in checks.items():
+        log("check", f"{item}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"{what} checks failed")
+
+
+def blob_tomogram(rng, depth: int, side: int):
+    """Bright ellipsoid blobs (~+120) on noise (60 ± 20) as uint8, and the
+    blob mask as int8 labels with the first 16 slices unlabeled (−1)."""
+    import numpy as np
+
+    vol = rng.normal(60.0, 20.0, size=(depth, side, side)).astype(np.float32)
+    mask = np.zeros((depth, side, side), dtype=bool)
+    for _ in range(60):
+        centre = rng.uniform((0, 0, 0), (depth, side, side))
+        radii = rng.uniform((6, 16, 16), (20, 48, 48))
+        lo = np.maximum(np.floor(centre - radii), 0).astype(int)
+        hi = np.minimum(np.ceil(centre + radii) + 1, (depth, side, side)).astype(int)
+        zz, yy, xx = np.ogrid[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        inside = (((zz - centre[0]) / radii[0]) ** 2 + ((yy - centre[1]) / radii[1]) ** 2
+                  + ((xx - centre[2]) / radii[2]) ** 2) <= 1.0
+        mask[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] |= inside
+    vol[mask] += 120.0
+    label = mask.astype(np.int8)
+    label[:16] = -1
+    return np.clip(vol, 0, 255).astype(np.uint8), label
+
+
+class _Recorder:
+    """Logger keeping every logged dict; callback snapshotting the weights
+    of the last epoch before SWA swaps its average in."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.history: list[dict[str, float]] = []
+        self.last_weights: dict[str, torch.Tensor] = {}
+
+    def log_scalars(self, scalars, step):
+        self.history.append(dict(scalars))
+
+    def on_train_epoch_end(self, epoch, logs):
+        self.last_weights = {n: p.detach().clone() for n, p in self.trainer.module.named_parameters()}
+
+    def series(self, key):
+        return [h[key] for h in self.history if key in h]
+
+
+def training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
+    import importlib.util
+
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.config import TrainConfig
+    from cryovit_tpu_torch.data import FileDataset
+    from cryovit_tpu_torch.io import load_files_from_path, write_hdf, write_mrc
+    from cryovit_tpu_torch.run.dino_features import DinoExtractor, load_extractor, save_feature_hdf
+    from cryovit_tpu_torch.run.infer_model import fused_predictions, load_fused
+    from cryovit_tpu_torch.run.train_model import build_file_datamodule, build_model, build_trainer
+    from cryovit_tpu_torch.train.checkpoint import save_model
+
+    name = torch.cuda.get_device_name(0)
+    tomo, label = blob_tomogram(np.random.default_rng(7), TRAIN_DEPTH, SIDE)
+    tomo_dir = workdir / "train_tomograms"
+    tomo_dir.mkdir()
+    write_mrc(tomo_dir / "blobs.mrc", tomo)
+    labelled = label[label > -1]
+    log("train", f"synthetic {TRAIN_DEPTH}x{SIDE}x{SIDE} uint8 tomogram: blob fraction "
+        f"{labelled.mean():.4f} of {labelled.size} labelled voxels, first 16 slices unlabeled")
+
+    t0 = time.perf_counter()
+    extractor = DinoExtractor(load_extractor(random_init=True, device=dev), batch_size=SLICE_BATCH)
+    feats = extractor.extract(tomo)
+    torch.cuda.synchronize()
+    log("train", f"ViT-g/14 features {feats.shape} {feats.dtype} in "
+        f"{time.perf_counter() - t0:.1f} s (model built and run)")
+    del extractor
+    torch.cuda.empty_cache()
+
+    cfg = TrainConfig(label_key="mito", name="smoke_train")
+    cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, max_epochs=TRAIN_EPOCHS))
+    volume = tomo.astype(np.float32) / 255.0
+    feature_path, label_path = workdir / "features" / "blobs.hdf", workdir / "labels" / "blobs.hdf"
+    if importlib.util.find_spec("h5py") is None:
+        class ArrayDataset(FileDataset):
+            """FileDataset one step below its HDF5 reader: the arrays a
+            training-ready file would hold."""
+
+            def _load(self, fd):
+                return feats.astype(np.float32), label
+
+            def _load_raw(self, fd):
+                return volume
+
+        for path in (feature_path, label_path):
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.touch()  # FileDataModule skips files that do not exist
+        dataset_cls = ArrayDataset
+        log("train", "h5py is not installed here: the dataset returns the arrays of the "
+            "training-ready HDF5 (FileDataset below its reader); the loaders, collate, "
+            "Trainer and .model writer are the port's own")
+    else:
+        save_feature_hdf({"data": volume, "mito": label}, feats, feature_path.name,
+                         feature_path.parent)
+        label_path.parent.mkdir(parents=True, exist_ok=True)
+        write_hdf(label_path, {"mito": label})
+        dataset_cls = FileDataset
+    datamodule = build_file_datamodule(cfg, [feature_path], [label_path], labels=["mito"],
+                                       dataset_cls=dataset_cls)
+    trainer = build_trainer(cfg, device=dev, root_dir=workdir)
+    rec = _Recorder(trainer)
+    trainer.loggers.append(rec)
+    trainer.callbacks.append(rec)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    module = trainer.fit(build_model(cfg), datamodule)
+    model_path = save_model("smoke_train", "mito", module, workdir / "smoke_train.model")
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    segmenter, _ = load_fused(model_path, random_init=True, device=dev, slice_batch=SLICE_BATCH)
+    probs = next(iter(fused_predictions(load_files_from_path(tomo_dir), segmenter))).preds[0]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    del segmenter
+
+    losses = rec.series("train_dice_loss")
+    log("train", f"Trainer.fit: {TRAIN_EPOCHS} epochs of one {TRAIN_DEPTH}x{SIDE}x{SIDE} crop "
+        f"in {t_fit:.1f} s; train_dice_loss {' '.join(f'{v:.4f}' for v in losses)}")
+    log("train", f"val_dice_loss {' '.join(f'{v:.4f}' for v in rec.series('val_dice_loss'))}; "
+        f"val_dice_metric {' '.join(f'{v:.4f}' for v in rec.series('val_dice_metric'))}")
+    log("train", f"epoch_time_s {' '.join(f'{v:.3f}' for v in rec.series('epoch_time_s'))} "
+        f"({name})")
+    log("train", f"peak device memory during fit {peak / 2**30:.2f} GiB ({name})")
+    log("train", f"launches during the training path (fit, .model, fused inference): {counts}")
+    swa_moved = max((rec.last_weights[n] - p).abs().max().item()
+                    for n, p in module.named_parameters())
+    checks = {
+        "every logged value finite": all(np.isfinite(v) for h in rec.history for v in h.values()),
+        f"{len(losses)} train steps logged": len(losses) == TRAIN_EPOCHS,
+        "last train_dice_loss below the first": losses[-1] < losses[0],
+        "grad_norm > 0": all(v > 0 for v in rec.series("grad_norm")),
+        "SWA average differs from the last weights": swa_moved > 0,
+        f"served probabilities {(TRAIN_DEPTH, SIDE, SIDE)} finite in [0, 1]":
+            probs.shape == (TRAIN_DEPTH, SIDE, SIDE) and bool(np.isfinite(probs).all())
+            and bool(probs.min() >= 0.0 and probs.max() <= 1.0),
+        "every kernel launched": all(n > 0 for n in counts.values()),
+    }
+    log("train", f"SWA moved the weights by up to {swa_moved:.3g}; served probabilities mean "
+        f"{probs.mean():.4f}, blob voxels {probs[label == 1].mean():.4f}, background "
+        f"{probs[label == 0].mean():.4f}")
+
+    # one isolated train step on the same batch: launches, time, profile
+    batch, _ = next(iter(datamodule.train_loader()))
+    data, target = trainer.to_device(batch)
+    kernels.reset_launch_counts()
+    trainer.train_step(data, target)
+    torch.cuda.synchronize()
+    step_counts = kernels.launch_counts()
+    checks[f"one train step launches {TRAIN_STEP_LAUNCHES}"] = step_counts == TRAIN_STEP_LAUNCHES
+    times = []
+    for _ in range(5):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(data, target)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    step_ms = statistics.median(times)
+    voxels = TRAIN_DEPTH * SIDE * SIDE
+    log("train", f"train step at {TRAIN_DEPTH}x{SIDE}x{SIDE} (batch 1, bf16): median of 5 "
+        f"{step_ms:.2f} ms (all {' '.join(f'{t:.2f}' for t in times)}) = "
+        f"{voxels / step_ms * 1e3 / 1e6:.1f} M voxels/s ({name})")
+    log("train", f"launches in one train step: {step_counts}")
+    _profile_step(trainer, data, target, name)
+    _report_checks(checks, "training path")
+    return counts
+
+
+# kernel-name fragments → the layer a device kernel belongs to
+PROFILE_GROUPS = (
+    ("port kernels (decoder tail)", ("conv3d_dm", "convt2x_dm", "sum_partials")),
+    ("cuDNN / cuBLAS (projection, front convs)",
+     ("convolve", "wgrad", "dgrad", "xmma", "cutlass", "nvjet", "gemm", "cudnn", "implicit")),
+)
+
+
+def _profile_step(trainer, data, target, name: str) -> None:
+    """Device time of one train step by kernel and by layer, from
+    torch.profiler (device kernels only, not the host ops that launch them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(data, target)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    groups: dict[str, float] = {}
+    for e in rows:
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in e.key for k in keys)),
+                     "elementwise, norms, reductions, copies")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    log("profile", f"one train step: kernels busy {total:.2f} ms of {wall:.2f} ms wall "
+        f"(profiled) ({name})")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log("profile", f"{ms:9.3f} ms ({100 * ms / total:4.1f} %)  {group}")
+    for e in rows[:12]:
+        log("profile", f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x  {e.key[:100]}")
+
+
+def _kernel_names(build_log: str):
+    """(kernel<template args>, ptxas usage) lines of the nvcc -Xptxas -v report."""
+    kernel = ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"((?:flash_attention|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
+                          r"|sum_partials)_kernel)(I(?:Li\d+E)+E)?", line)
+            args = ",".join(re.findall(r"Li(\d+)E", m[2])) if m and m[2] else ""
+            kernel = (f"{m[1]}<{args}>" if args else m[1]) if m else line
+        elif "Used" in line:
+            yield kernel, line.split(":", 1)[1].strip()
 
 
 def main() -> int:
@@ -291,22 +738,20 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load_library()
     log("build", f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    kernel = ""
-    for line in kernels.build_log().splitlines():  # nvcc -Xptxas -v report
-        if "Compiling entry function" in line:
-            m = re.search(r"((?:flash_attention|conv3d_dm|convt2x_dm)_kernel)(?:ILi(\d+)E)?", line)
-            kernel = f"{m[1]}<{m[2]}>" if m and m[2] else (m[1] if m else line)
-        elif "Used" in line:
-            log("build", f"{kernel}: {line.split(':', 1)[1].strip()}")
+    for kernel, usage in _kernel_names(kernels.build_log()):
+        log("build", f"{kernel}: {usage}")
 
     results = kernel_phase(dev)
     reference_phase(dev)
+    train_reference_phase(dev)
     with tempfile.TemporaryDirectory(prefix="cryovit_smoke_") as tmp:
-        counts = main_path_phase(dev, Path(tmp))
+        serving = serving_phase(dev, Path(tmp))
+        training = training_phase(dev, Path(tmp))
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": counts[name], **results[name]}
+         "launches": serving[name] + training[name], **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
     print(json.dumps(report))

@@ -17,11 +17,19 @@ __all__ = ["compute_dtype", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``device`` as a ``torch.device``; None picks the first GPU when there
-    is one and the CPU otherwise."""
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``device`` as a ``torch.device``; None means the GPU.
+
+    The port runs on the card unless the caller names the CPU: without CUDA,
+    None (or a CUDA device) raises instead of quietly running on the CPU.
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: cryovit_tpu_torch runs on an NVIDIA GPU unless the "
+            "CPU is asked for by name (device='cpu', or --device cpu on the "
+            "command line)"
+        )
+    return device
 
 
 def compute_dtype(device: torch.device) -> torch.dtype:

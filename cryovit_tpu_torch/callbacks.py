@@ -1,16 +1,24 @@
-"""Prediction writer (port of ``cryovit_tpu/callbacks.py:PredictionWriter``,
-reference ``models/callbacks.py:61-109``): thresholded uint8 segmentations
-in HDF5, byte-compatible with the reference layout."""
+"""Callbacks and loggers (port of parts of ``cryovit_tpu/callbacks.py``).
+
+- :class:`PredictionWriter` (reference ``models/callbacks.py:61-109``):
+  thresholded uint8 segmentations in HDF5, byte-compatible with the
+  reference layout;
+- :class:`TensorBoardLogger`: the trainer's scalars through torch's
+  ``SummaryWriter`` (``cryovit-torch train --log-training``).
+"""
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 
 import numpy as np
 
 from cryovit_tpu_torch.types import BatchedModelResult
 
-__all__ = ["PredictionWriter", "threshold_masks"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["PredictionWriter", "TensorBoardLogger", "threshold_masks"]
 
 
 def threshold_masks(preds: np.ndarray, threshold: float) -> np.ndarray:
@@ -41,3 +49,30 @@ class PredictionWriter:
                 )
                 f.create_dataset(f"{self.label_key}_preds", data=segs, compression="gzip")
             self.result_paths.append(path)
+
+
+class TensorBoardLogger:
+    """Scalar logging to ``<save_dir>/tb/<name>`` via torch's
+    ``SummaryWriter``; logs nothing, with a warning, where the tensorboard
+    package is not installed."""
+
+    def __init__(self, save_dir: str | Path, name: str = "run") -> None:
+        self.log_dir = Path(save_dir) / "tb" / name
+        self._writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            logger.warning("TensorBoard unavailable (%s); scalars not logged", e)
+            return
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._writer = SummaryWriter(log_dir=str(self.log_dir))
+
+    def log_scalars(self, scalars: dict[str, float], step: int) -> None:
+        if self._writer is None:
+            return
+        for key, val in scalars.items():
+            self._writer.add_scalar(key, val, step)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()

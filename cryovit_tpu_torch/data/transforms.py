@@ -31,7 +31,7 @@ def pad_slices_to_multiple(data: np.ndarray, multiple: int = 16) -> np.ndarray:
     ``multiple`` (reference ``file_dataset.py:207-219``)."""
     h, w = data.shape[-2:]
     target = data.shape[:-2] + (round_up(h, multiple), round_up(w, multiple))
-    return pad_to(data, target)
+    return pad_to(data, target, mode="edge")
 
 
 def dino_grid_shape(h: int, w: int) -> tuple[int, int]:

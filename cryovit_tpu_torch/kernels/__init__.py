@@ -1,9 +1,10 @@
 """Build-and-load for the hand-written Hopper kernels in ``csrc/``.
 
-The CUDA sources are compiled on first use with ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds) under ``build/cryovit_tpu_torch/`` at the root of the checkout, and
-loaded with ``ctypes``. The library's file name carries a hash of the
+The CUDA sources are compiled on first use with ``nvcc``, one process per
+source started together, and linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds) under
+``build/cryovit_tpu_torch/`` at the root of the checkout, and loaded with
+``ctypes``. The library's file name carries a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
 the library already built.
 
@@ -28,6 +29,7 @@ __all__ = [
     "build_log",
     "check",
     "count_launch",
+    "grid_blocks",
     "launch_counts",
     "load_library",
     "reset_launch_counts",
@@ -38,10 +40,12 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cryovit_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-KERNELS = ("flash_attention", "conv3d_dm", "convt2x_dm")  # launch-counter names
+KERNELS = (  # launch-counter names
+    "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +60,14 @@ _ARGTYPES = {
     "cryovit_conv3d_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, batch, depth, ci, co, height, width, stream
     "cryovit_convt2x_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, partial, dw, batch, depth, ci, co, height, width, dilation,
+    # nblocks, stream
+    "cryovit_conv3d_dm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, x, w, dx, partial, dw, batch, depth, ci, co, height, width, nblocks,
+    # stream
+    "cryovit_convt2x_dm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -75,6 +86,16 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def grid_blocks(device, n_items: int) -> int:
+    """Blocks for a kernel that strides its blocks over ``n_items`` work
+    items and reduces their partial results afterwards: two per SM, at most
+    one per item."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(2 * sms, n_items))
 
 
 def _find_nvcc() -> str:
@@ -113,18 +134,36 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-def _build(target: Path) -> None:
-    nvcc = _find_nvcc()
-    target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+def _run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    return proc.stdout + proc.stderr
+
+
+def _build(target: Path) -> None:
+    """One ``nvcc -c`` per source, all at once, then one link into the
+    shared library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    nvcc = _find_nvcc()
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{target.stem}.{os.getpid()}"
+    sources = _sources()
+    objects = [target.with_name(f"{tag}.{src.stem}.o") for src in sources]
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        logs = list(pool.map(
+            lambda so: _run([nvcc, *NVCC_FLAGS, "-c", str(so[0]), "-o", str(so[1])]),
+            zip(sources, objects),
+        ))
+    tmp = target.with_name(f"{tag}.so.tmp")
+    _run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objects)])
+    for obj in objects:
+        obj.unlink()
+    target.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, target)
 
 

@@ -1,4 +1,4 @@
-"""CryoVIT 3D convolutional decoder over DINOv2 features, forward only.
+"""CryoVIT 3D convolutional decoder over DINOv2 features.
 
 Port of ``cryovit_tpu/models/cryovit.py`` (reference ``models/cryovit.py``):
 1×1×1 projection 1536→1024 + GELU, four SynthesisBlocks (GroupNorm
@@ -15,8 +15,15 @@ effect: 16× H/W upsampling from the patch grid back to voxels; depth kept.
   package runs these as XLA ops outside any Pallas kernel too.
 - The few-channel high-resolution tail (blocks 2–3, the head) runs
   depth-major ``(B, D, C, H, W)`` through the hand-written kernels
-  ``ops/conv3d_dm.py`` and ``ops/convt_dm.py``.
+  ``ops/conv3d_dm.py`` and ``ops/convt_dm.py``, wrapped in the autograd
+  Functions :class:`_ConvDM` and :class:`_ConvTDM` (the JAX package's
+  ``custom_vjp``s ``_conv_dm_core`` and ``_convt_core``), whose backward
+  passes are kernels too. Bias, GroupNorm, GELU, clamp and sigmoid stay under
+  plain autograd.
 - GELU is the exact (erf) form; GroupNorm statistics are f32.
+- The compute dtype is ``CryoVIT.dtype`` (``CryoVITModule(dtype=...)``):
+  weights are cast to it on use, so the parameters can stay f32 masters
+  while training computes in bf16. None computes in the parameters' dtype.
 """
 
 from __future__ import annotations
@@ -26,8 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cryovit_tpu_torch.models._init import lecun_normal
-from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm
-from cryovit_tpu_torch.ops.convt_dm import convt2x_dm
+from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
+from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
 
 __all__ = ["CryoVIT", "SynthesisBlock", "make_cryovit", "random_cryovit_state_dict"]
 
@@ -53,13 +60,63 @@ def _group_norm(x: torch.Tensor, gn: nn.GroupNorm, channel_dim: int) -> torch.Te
     return (y * gn.weight.float().view(affine) + gn.bias.float().view(affine)).to(x.dtype)
 
 
-def _dm_kernel(conv: nn.Conv3d) -> torch.Tensor:
+class _ConvDM(torch.autograd.Function):
+    """SAME 3³ depth-major conv (:func:`conv3d_dm`) whose backward is two
+    kernel calls: the input gradient is the same conv kernel with the
+    tap-flipped, in/out-swapped weights, the weight gradient
+    :func:`conv3d_dm_dw` (``cryovit_tpu/models/cryovit.py:_conv_dm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, dilation):
+        ctx.save_for_backward(x, kernel)
+        ctx.dilation = dilation
+        return conv3d_dm(x, kernel, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        g = g.contiguous()  # the kernel wrappers take contiguous tensors only
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            flipped = kernel.flip(0, 1, 2).transpose(3, 4).contiguous()
+            dx = conv3d_dm(g, flipped, ctx.dilation)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_dm_dw(x, g, ctx.dilation).to(kernel.dtype)
+        return dx, dw, None
+
+
+class _ConvTDM(torch.autograd.Function):
+    """2× lateral ConvTranspose (:func:`convt2x_dm`) whose backward is one
+    kernel call for dx and dW (:func:`convt2x_dm_bwd`,
+    ``cryovit_tpu/models/cryovit.py:_convt_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel):
+        ctx.save_for_backward(x, kernel)
+        return convt2x_dm(x, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        dx, dw = convt2x_dm_bwd(g.contiguous(), x, kernel)
+        return dx, dw.to(kernel.dtype)
+
+
+def _dm_kernel(conv: nn.Conv3d, dtype: torch.dtype) -> torch.Tensor:
     """torch Conv3d weight ``(Co, Ci, kd, kh, kw)`` → flax ``(kd, kh, kw, Ci, Co)``."""
-    return conv.weight.permute(2, 3, 4, 1, 0)
+    return conv.weight.to(dtype).permute(2, 3, 4, 1, 0)
 
 
-def _dm_bias(bias: torch.Tensor) -> torch.Tensor:
-    return bias.view(1, 1, -1, 1, 1)
+def _dm_bias(bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return bias.to(dtype).view(1, 1, -1, 1, 1)
+
+
+def _conv_cf(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
+    """``conv`` on channels-first x with its weights cast to x's dtype."""
+    return F.conv3d(
+        x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+        padding=conv.padding, dilation=conv.dilation,
+    )
 
 
 class SynthesisBlock(nn.Module):
@@ -78,23 +135,28 @@ class SynthesisBlock(nn.Module):
         )
 
     def forward_channels_first(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, C, D, H, W)`` → ``(B, c3, D, 2H, 2W)`` on library convs."""
+        """``(B, C, D, H, W)`` → ``(B, c3, D, 2H, 2W)`` on library convs, in
+        x's dtype."""
         gn, conv0, _, conv1, _, convt, _ = self.layers
         x = _group_norm(x, gn, channel_dim=1)
-        x = F.gelu(conv0(x))
-        x = F.gelu(conv1(x))
-        return F.gelu(convt(x))
+        x = F.gelu(_conv_cf(x, conv0))
+        x = F.gelu(_conv_cf(x, conv1))
+        return F.gelu(F.conv_transpose3d(
+            x, convt.weight.to(x.dtype), convt.bias.to(x.dtype), stride=convt.stride
+        ))
 
     def forward_depth_major(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, D, C, H, W)`` → ``(B, D, c3, 2H, 2W)`` on the tail kernels."""
+        """``(B, D, C, H, W)`` → ``(B, D, c3, 2H, 2W)`` on the tail kernels, in
+        x's dtype."""
         gn, conv0, _, conv1, _, convt, _ = self.layers
+        dt = x.dtype
         x = _group_norm(x, gn, channel_dim=2)
-        x = F.gelu(conv3d_dm(x, _dm_kernel(conv0), conv0.dilation) + _dm_bias(conv0.bias))
-        x = F.gelu(conv3d_dm(x, _dm_kernel(conv1), conv1.dilation) + _dm_bias(conv1.bias))
+        x = F.gelu(_ConvDM.apply(x, _dm_kernel(conv0, dt), conv0.dilation) + _dm_bias(conv0.bias, dt))
+        x = F.gelu(_ConvDM.apply(x, _dm_kernel(conv1, dt), conv1.dilation) + _dm_bias(conv1.bias, dt))
         # torch's ConvTranspose3d weight (Ci, Co, 1, 2, 2) is flax's kernel
         # with both lateral taps flipped
-        kernel = convt.weight.flip(2, 3, 4).permute(2, 3, 4, 0, 1)
-        return F.gelu(convt2x_dm(x, kernel) + _dm_bias(convt.bias))
+        kernel = convt.weight.to(dt).flip(2, 3, 4).permute(2, 3, 4, 0, 1)
+        return F.gelu(_ConvTDM.apply(x, kernel) + _dm_bias(convt.bias, dt))
 
 
 class CryoVIT(nn.Module):
@@ -102,11 +164,13 @@ class CryoVIT(nn.Module):
 
     Input: ``(B, D, h, w, in_channels)`` DINOv2 patch features (h = H/16;
     1536 channels for ViT-g). Output: ``(B, D, 16·h, 16·w)`` f32 per-voxel
-    probabilities. Computes in the dtype of its parameters.
+    probabilities. Computes in ``dtype``, or in the dtype of its parameters
+    when that is None.
     """
 
-    def __init__(self, in_channels: int = 1536):
+    def __init__(self, in_channels: int = 1536, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         c1 = _PROJ_CHANNELS
         blocks = []
         for c2, c3, d1, d2 in _BLOCKS:
@@ -121,10 +185,10 @@ class CryoVIT(nn.Module):
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         proj, _, *blocks = self.layers
-        dtype = proj.weight.dtype
+        dtype = self.dtype or proj.weight.dtype
         x = feats.to(dtype)
         # 1x1x1 projection as one channels-last matmul
-        x = F.gelu(F.linear(x, proj.weight.flatten(1), proj.bias))
+        x = F.gelu(F.linear(x, proj.weight.to(dtype).flatten(1), proj.bias.to(dtype)))
         x = x.permute(0, 4, 1, 2, 3)  # (B, C, D, h, w)
         for block in blocks[:_DEPTH_MAJOR_FROM]:
             x = block.forward_channels_first(x)
@@ -132,8 +196,9 @@ class CryoVIT(nn.Module):
         for block in blocks[_DEPTH_MAJOR_FROM:]:
             x = block.forward_depth_major(x)
         conv1, _, conv2 = self.output_layer
-        x = F.gelu(conv3d_dm(x, _dm_kernel(conv1)) + _dm_bias(conv1.bias))
-        x = conv3d_dm(x, _dm_kernel(conv2))[:, :, 0] + conv2.bias
+        one = (1, 1, 1)
+        x = F.gelu(_ConvDM.apply(x, _dm_kernel(conv1, dtype), one) + _dm_bias(conv1.bias, dtype))
+        x = _ConvDM.apply(x, _dm_kernel(conv2, dtype), one)[:, :, 0] + conv2.bias.to(dtype)
         return torch.sigmoid(torch.clamp(x.float(), -5.0, 5.0))
 
 
@@ -141,13 +206,27 @@ def make_cryovit(
     state_dict: dict[str, torch.Tensor],
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
+    trainable: bool = False,
 ) -> CryoVIT:
-    """The decoder with ``state_dict`` (reference names) on ``device`` in
-    ``dtype``, for inference; the feature width comes from the projection."""
+    """The decoder with ``state_dict`` (reference names) on ``device``; the
+    feature width comes from the projection.
+
+    For inference (the default) the parameters are in ``dtype``, frozen.
+    With ``trainable`` they stay f32 (the master copy the optimizer updates)
+    and ``dtype`` is the compute dtype, as ``CryoVITModule(dtype=...)``."""
     with torch.device("meta"):
-        model = CryoVIT(in_channels=state_dict["layers.0.weight"].shape[1])
-    sd = {k: torch.as_tensor(v).to(device=device, dtype=dtype) for k, v in state_dict.items()}
+        model = CryoVIT(
+            in_channels=state_dict["layers.0.weight"].shape[1],
+            dtype=dtype if trainable else None,
+        )
+    param_dtype = torch.float32 if trainable else dtype
+    sd = {
+        k: torch.as_tensor(v).to(device=device, dtype=param_dtype).clone()
+        for k, v in state_dict.items()
+    }
     model.load_state_dict(sd, strict=True, assign=True)
+    if trainable:
+        return model.train()
     return model.eval().requires_grad_(False)
 
 

@@ -1,16 +1,30 @@
-"""Registries and result containers: the part of ``cryovit_tpu/types.py``
-the serving path needs (``ModelType``, ``BatchedModelResult``, ``pad_to``,
-``round_up``). The JAX package's static-shape ``TomogramBatch`` pytree has no
-counterpart here."""
+"""Registries, host records and batch containers (port of ``cryovit_tpu/types.py``).
+
+- host-side records are plain numpy (:class:`FileData`, :class:`TomogramData`);
+- a batch (:class:`TomogramBatch`) is numpy padded to a bucket shape, with
+  labels padded to −1 so the masked losses and metrics ignore the padding;
+  the trainer moves it to the device. The JAX package registers it as a
+  pytree; here it is a plain dataclass.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 from enum import Enum
+from pathlib import Path
+from typing import Any
 
 import numpy as np
 
-__all__ = ["ModelType", "BatchedModelResult", "pad_to", "round_up"]
+__all__ = [
+    "BatchedModelResult",
+    "FileData",
+    "ModelType",
+    "TomogramBatch",
+    "TomogramData",
+    "pad_to",
+    "round_up",
+]
 
 
 class ModelType(Enum):
@@ -22,22 +36,87 @@ class ModelType(Enum):
     MEDSAM = "medsam"
 
 
+@dataclasses.dataclass
+class FileData:
+    """File paths + metadata for a single tomogram (reference ``types.py:61-76``)."""
+
+    tomo_path: Path
+    label_path: Path | None = None
+    labels: list[str] | None = None
+    sample: str | None = None
+
+
+@dataclasses.dataclass
+class TomogramData:
+    """Host-side record for one tomogram.
+
+    Attributes:
+        sample: experiment sample name.
+        tomo_name: source file name.
+        split_id: optional split identifier.
+        data: input volume, channels-last ``(D, H, W, C)`` (DINOv2 features
+            ``(D, h, w, 1536)``; the HDF5 file stores ``(C, D, h, w)``).
+        label: ``(D, H, W)`` int8 labels with −1 = unlabeled / ignore.
+        aux_data: optional extra host arrays (e.g. raw volume for writers).
+    """
+
+    sample: str
+    tomo_name: str
+    split_id: int | None
+    data: np.ndarray
+    label: np.ndarray
+    aux_data: dict[str, Any] | None = None
+
+    @property
+    def depth(self) -> int:
+        return int(self.data.shape[0])
+
+
+@dataclasses.dataclass
+class TomogramBatch:
+    """A batch of tomograms padded to one bucket shape.
+
+    Attributes:
+        data: ``(B, D, H, W, C)`` input (voxels or DINOv2 features).
+        label: ``(B, D, H, W)`` int8 labels, −1 = ignore (padding included).
+        num_slices: ``(B,)`` int32 true depth of each tomogram.
+    """
+
+    data: np.ndarray
+    label: np.ndarray
+    num_slices: np.ndarray
+
+    @property
+    def num_tomos(self) -> int:
+        return int(self.data.shape[0])
+
+
 def round_up(x: int, multiple: int) -> int:
     """Round ``x`` up to the nearest multiple of ``multiple``."""
     return ((x + multiple - 1) // multiple) * multiple
 
 
-def pad_to(arr: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
-    """Edge-pad ``arr`` at the trailing end of each axis up to ``shape``,
-    replicating border values (ViT preprocessing, reference
-    ``datasets/file_dataset.py:190-231``). The JAX package's constant mode
-    has no caller on the ported path."""
+def pad_to(
+    arr: np.ndarray,
+    shape: tuple[int, ...],
+    *,
+    value: float = 0.0,
+    mode: str = "constant",
+) -> np.ndarray:
+    """Pad ``arr`` at the trailing end of each axis up to ``shape``.
+
+    ``mode='edge'`` replicates border values (ViT preprocessing, reference
+    ``datasets/file_dataset.py:190-231``); the constant mode fills ``value``
+    (batch collation: 0 for data, −1 for labels).
+    """
     pads = [(0, t - s) for s, t in zip(arr.shape, shape)]
     if any(p[1] < 0 for p in pads):
         raise ValueError(f"cannot pad {arr.shape} to smaller {shape}")
     if all(p[1] == 0 for p in pads):
         return arr
-    return np.pad(arr, pads, mode="edge")
+    if mode == "constant":
+        return np.pad(arr, pads, mode="constant", constant_values=value)
+    return np.pad(arr, pads, mode=mode)
 
 
 @dataclasses.dataclass

@@ -70,7 +70,83 @@ def test_each_launch_counts_once(cuda):
     cd.conv3d_dm(x, _randn(cuda, 3, 3, 3, 8, 8))
     ct.convt2x_dm(x, _randn(cuda, 1, 2, 2, 8, 8))
     ct.convt2x_dm(x, _randn(cuda, 1, 2, 2, 8, 8))
-    assert kernels.launch_counts() == {"flash_attention": 0, "conv3d_dm": 1, "convt2x_dm": 2}
+    cd.conv3d_dm_dw(x, x)
+    ct.convt2x_dm_bwd(_randn(cuda, 1, 2, 8, 8, 8), x, _randn(cuda, 1, 2, 2, 8, 8))
+    assert kernels.launch_counts() == {
+        "flash_attention": 0, "conv3d_dm": 1, "convt2x_dm": 2, "conv3d_dm_dw": 1,
+        "convt2x_dm_bwd": 1,
+    }
+
+
+@pytest.mark.parametrize(
+    "ci,co,h,w,dil",
+    [(8, 1, 7, 33, 1), (16, 8, 20, 64, 2), (32, 32, 9, 40, 4), (32, 16, 12, 70, 7), (8, 8, 3, 5, 1)],
+)
+def test_conv3d_dw_kernel_matches_plain(cuda, ci, co, h, w, dil):
+    """Ragged H and W, depth dilation 7 > D = 5 (only the centre depth tap
+    has planes); f32 sums in another order: within 1e-3·max|plain|, and the
+    same bits on a second run (fixed-order reduction)."""
+    x = _randn(cuda, 2, 5, ci, h, w)
+    g = _randn(cuda, 2, 5, co, h, w, seed=1)
+    got = cd.conv3d_dm_dw(x, g, (dil, 1, 1))
+    want = cd.conv3d_dm_dw_reference(x, g, (dil, 1, 1))
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, ci, co)
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    assert torch.equal(got, cd.conv3d_dm_dw(x, g, (dil, 1, 1)))
+
+
+@pytest.mark.parametrize("ci,co,h,w", [(8, 8, 5, 9), (16, 8, 12, 20), (32, 32, 8, 128), (32, 16, 3, 33)])
+def test_convt_bwd_kernel_matches_plain(cuda, ci, co, h, w):
+    """dx in bf16 within 2^-6·max|plain|; dW (f32) within 1e-3·max|plain|."""
+    x = _randn(cuda, 2, 3, ci, h, w)
+    g = _randn(cuda, 2, 3, co, 2 * h, 2 * w, seed=1)
+    kern = _randn(cuda, 1, 2, 2, ci, co, seed=2, scale=ci**-0.5)
+    dx, dw = ct.convt2x_dm_bwd(g, x, kern)
+    want_dx, want_dw = ct.convt2x_dm_bwd_reference(g, x, kern)
+    _close(dx, want_dx)
+    assert dw.shape == want_dw.shape == (1, 2, 2, ci, co)
+    assert (dw - want_dw).abs().max().item() <= 1e-3 * want_dw.abs().max().item()
+
+
+def test_conv3d_kernel_takes_one_input_channel(cuda):
+    """The input gradient of the mask head's 8 -> 1 conv is a 1 -> 8 conv:
+    the forward kernel zero-fills the rest of its chunk of 8 channels."""
+    g = _randn(cuda, 1, 6, 1, 20, 36)
+    kern = _randn(cuda, 3, 3, 3, 1, 8, seed=1)
+    _close(cd.conv3d_dm(g, kern), cd.conv3d_dm_reference(g, kern))
+
+
+def test_decoder_gradients_match_plain_versions_on_the_gpu(cuda, monkeypatch):
+    """A bf16 decoder (full width, f32 master weights) backpropagates a
+    masked Dice loss through the kernels; the same step with every kernel
+    wrapper swapped for its plain version on the GPU gives each parameter's
+    gradient within relative L2 error 2e-2 (bf16 outputs, the same inputs)."""
+    from cryovit_tpu_torch.models import cryovit as cv
+    from cryovit_tpu_torch.models.losses import dice_loss
+
+    sd = cv.random_cryovit_state_dict(torch.Generator().manual_seed(0), in_channels=64)
+    feats = torch.randn(1, 4, 4, 6, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
+    label = (torch.rand(1, 4, 64, 96, generator=torch.Generator().manual_seed(2)) > 0.5).float()
+    label[:, 0] = -1
+    label = label.to(cuda)
+
+    def grads():
+        model = cv.make_cryovit(sd, device=cuda, dtype=torch.bfloat16, trainable=True)
+        dice_loss(model(feats), label, label > -1).backward()
+        return {n: p.grad.float() for n, p in model.named_parameters()}
+
+    kernels.reset_launch_counts()
+    got = grads()
+    assert kernels.launch_counts()["conv3d_dm_dw"] == 6
+    assert kernels.launch_counts()["convt2x_dm_bwd"] == 2
+    monkeypatch.setattr(cv, "conv3d_dm", cd.conv3d_dm_reference)
+    monkeypatch.setattr(cv, "conv3d_dm_dw", cd.conv3d_dm_dw_reference)
+    monkeypatch.setattr(cv, "convt2x_dm", ct.convt2x_dm_reference)
+    monkeypatch.setattr(cv, "convt2x_dm_bwd", ct.convt2x_dm_bwd_reference)
+    want = grads()
+    for name, w in want.items():
+        rel = (got[name] - w).norm() / w.norm().clamp_min(1e-12)
+        assert rel.item() <= 2e-2, (name, rel.item())
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
@@ -81,6 +157,18 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
         cd.conv3d_dm(x32, torch.zeros(3, 3, 3, 8, 8, device=cuda))
     with pytest.raises(ValueError, match="Co in"):
         ct.convt2x_dm(x32.bfloat16(), torch.zeros(1, 2, 2, 8, 4, device=cuda))
+    x = x32.bfloat16()
+    with pytest.raises(ValueError, match="bf16"):
+        cd.conv3d_dm_dw(x32, x)
+    with pytest.raises(ValueError, match="Co in"):
+        cd.conv3d_dm_dw(x, torch.zeros(1, 2, 4, 4, 4, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        cd.conv3d_dm_dw(x, x.transpose(3, 4))
+    g = torch.zeros(1, 2, 1, 8, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Ci and Co in"):
+        ct.convt2x_dm_bwd(g, x, torch.zeros(1, 2, 2, 8, 1, device=cuda))
+    with pytest.raises(ValueError, match="is not"):
+        ct.convt2x_dm_bwd(g[:, :, :, :4].contiguous(), x, torch.zeros(1, 2, 2, 8, 1, device=cuda))
     q = torch.zeros(1, 5, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, torch.zeros(3, 64, device=cuda, dtype=torch.bfloat16), 2)

@@ -13,8 +13,8 @@ import torch
 from cryovit_tpu_torch import kernels
 from cryovit_tpu_torch.cli.main import main
 from cryovit_tpu_torch.io import load_data, load_files_from_path, read_mrc, write_mrc
-from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm
-from cryovit_tpu_torch.ops.convt_dm import convt2x_dm
+from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
+from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
 from cryovit_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -60,13 +60,20 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
     x = torch.from_numpy(rng.standard_normal((1, 3, 8, 4, 6)).astype(np.float32))
     assert conv3d_dm(x, torch.ones(3, 3, 3, 8, 16), (2, 1, 1)).shape == (1, 3, 16, 4, 6)
     assert convt2x_dm(x, torch.ones(1, 2, 2, 8, 8)).shape == (1, 3, 8, 8, 12)
+    assert conv3d_dm_dw(x, x, (2, 1, 1)).shape == (3, 3, 3, 8, 8)
+    g = torch.ones(1, 3, 16, 8, 12)
+    dx, dw = convt2x_dm_bwd(g, x, torch.ones(1, 2, 2, 8, 16))
+    assert dx.shape == x.shape and dw.shape == (1, 2, 2, 8, 16)
     q = torch.from_numpy(rng.standard_normal((2, 9, 128)).astype(np.float32))
     assert flash_attention(q, q, q, torch.zeros(3, 128), 2).shape == (2, 9, 128)
     assert kernels._lib is None
-    assert kernels.launch_counts() == {"flash_attention": 0, "conv3d_dm": 0, "convt2x_dm": 0}
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert set(kernels.KERNELS) == {
+        "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
+    }
 
 
-@pytest.mark.parametrize("op", ["attention", "conv3d", "convt"])
+@pytest.mark.parametrize("op", ["attention", "conv3d", "convt", "conv3d_dw", "convt_bwd"])
 def test_wrappers_refuse_devices_without_a_kernel(op):
     """A tensor on neither the CPU nor a GPU raises: there is no fallback to
     the plain version outside the CPU."""
@@ -75,6 +82,8 @@ def test_wrappers_refuse_devices_without_a_kernel(op):
         "attention": lambda: flash_attention(x[0, 0], x[0, 0], x[0, 0], torch.empty(3, 4, device="meta"), 1),
         "conv3d": lambda: conv3d_dm(x, torch.empty(3, 3, 3, 8, 8, device="meta")),
         "convt": lambda: convt2x_dm(x, torch.empty(1, 2, 2, 8, 8, device="meta")),
+        "conv3d_dw": lambda: conv3d_dm_dw(x, x),
+        "convt_bwd": lambda: convt2x_dm_bwd(x, x, torch.empty(1, 2, 2, 8, 8, device="meta")),
     }
     with pytest.raises(ValueError, match="no .*kernel for device meta"):
         calls[op]()
@@ -109,8 +118,34 @@ def test_hdf_roundtrip_picks_the_most_unique_key(tmp_path, rng):
 
 @pytest.mark.parametrize(
     "argv",
-    [["train", "a", "b", "mito"], ["evaluate", "a", "b", "m.model"], ["infer", "dir", "--model", "m"]],
+    [
+        ["infer", "dir", "--model", "m", "--device", "cpu"],
+        ["evaluate", "a", "b", "m.model"],
+        ["infer", "dir", "--model", "m"],
+    ],
 )
 def test_cli_verbs_not_yet_ported_exit_with_a_message(argv, capsys):
     assert main(argv) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    """No GPU: the default device (None, or CUDA by name) raises and names
+    the way to ask for the CPU; the CPU is taken only when named."""
+    import cryovit_tpu_torch as port
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            port.resolve_device(device)
+    assert port.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_train_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """``cryovit-torch train`` without ``--device`` on a machine without a
+    GPU raises instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "t.hdf").touch()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", str(tmp_path), str(tmp_path), "mito", "--labels", "mito",
+              "--result-folder", str(tmp_path / "out")])

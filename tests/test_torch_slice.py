@@ -219,7 +219,7 @@ def test_run_dino_writes_the_reference_layout(slice_env, tmp_path):
 
 def test_cli_infer_fused_and_features_end_to_end(slice_env, tmp_path, monkeypatch):
     """``cryovit-torch infer --fused`` and ``features`` through ``main`` on
-    the CPU, with random backbone weights (``--random-init``) and the
+    the CPU (``--device cpu``), with random backbone weights (``--random-init``) and the
     backbone shrunk to the small config: masks and features in the
     reference HDF5 layout."""
     from cryovit_tpu_torch.cli.main import main
@@ -227,14 +227,15 @@ def test_cli_infer_fused_and_features_end_to_end(slice_env, tmp_path, monkeypatc
     monkeypatch.setattr(DinoV2Config, "giant", classmethod(lambda cls: cls(**SMALL)))
     tomos = slice_env["raw"].parent
     assert main(["infer", str(tomos), "--model", str(slice_env["model_path"]), "--fused",
-                 "--random-init", "--result-folder", str(tmp_path / "masks")]) == 0
+                 "--random-init", "--result-folder", str(tmp_path / "masks"),
+                 "--device", "cpu"]) == 0
     with h5py.File(tmp_path / "masks" / "t0.hdf") as f:
         masks = np.asarray(f["mito_preds"])
     assert masks.dtype == np.uint8 and masks.shape == (4, 128, 128)
     assert set(np.unique(masks)) <= {0, 1}
 
     assert main(["features", str(tomos), str(tmp_path / "feats"), "--random-init",
-                 "--batch-size", "3"]) == 0
+                 "--batch-size", "3", "--device", "cpu"]) == 0
     with h5py.File(tmp_path / "feats" / "t0.hdf") as f:
         assert f["dino_features"].shape == (128, 4, 8, 8)
         assert f["dino_features"].dtype == np.float16
