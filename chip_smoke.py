@@ -12,28 +12,40 @@ Phases, each printing its own lines; any failure exits non-zero:
    shapes its main paths give it: the forward kernels at the serving path's
    shapes for a 64×512×512 tomogram; at the training crop's (128×512×512
    labels) the backward kernels and conv3d_dm's twelve calls of a train
-   step (forward, and input gradient with flipped, in/out-swapped taps). Kernel, plain and library times from CUDA
-   events, and the least time the card could take (``bound_ms``).
+   step (forward, and input gradient with flipped, in/out-swapped taps); the
+   three Hiera kernels at Hiera-L's stage-3 shapes for a batch of 64 slices
+   at 512². Kernel, plain and library times from CUDA events, and the least
+   time the card could take (``bound_ms``).
 4. reference — the serving path on the GPU (bf16, kernels) against the same
    path on the CPU (f32, plain versions) on a small input.
 5. train reference — one train step of the full-width decoder on a small
    input, GPU bf16 through the kernels against CPU f32 through the plain
    versions: the probabilities, the Dice loss and every parameter's
    gradient.
-6. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
+6. SAM reference — the SAM2 image encoder on the GPU (bf16, kernels)
+   against the CPU (f32, plain versions), seeded weights, a small config
+   that opens both Hiera kernel gates at head width 72: cosine and relative
+   L2 error per FPN level.
+7. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
    the full-width DINOv2 ViT-g/14 with seeded random weights and a seeded
    CryoVIT decoder saved as a ``.model``; fused inference (raw tomogram →
    masks) and feature extraction on it.
-7. training main path — a synthetic 128×512×512 tomogram of bright blobs on
+8. training main path — a synthetic 128×512×512 tomogram of bright blobs on
    noise, its ViT-g/14 features and blob labels; ``Trainer.fit`` of the
    full-width decoder in bf16 for 8 epochs with SWA and validation through
    the port's FileDataModule, DataLoader and collate; the trained decoder
    saved as a ``.model`` and served by fused inference on the same
    tomogram. One isolated train step's launches, the step time (median of
    5) and a profile of one step.
+9. SAM serving main path — SAM2 feature extraction (``cryovit-torch features
+   --use-sam``'s extractor) on a synthetic 64×512×512 tomogram at Hiera-L
+   full width, slice batch 64: the pyramids' shapes and values, each Hiera
+   kernel's launches against the counts its gates give, slices/s with host
+   I/O, peak memory and a profile of one batch.
 
 Launch counters are zeroed just before each main path and read just after;
-every kernel of a path must have run. The next-to-last line is the card's
+every kernel of a path must have run (the SAM path: exactly the counts the
+Hiera gates give). The next-to-last line is the card's
 name and power limit, the one before it a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -76,11 +88,27 @@ KERNELS = {
                      "cryovit_tpu/ops/conv3d_dm.py:272"),
     "convt2x_dm_bwd": ("cryovit_tpu_torch/csrc/convt_dm_bwd.cu",
                        "cryovit_tpu/ops/convt_dm.py:162"),
+    "window_block_attention": ("cryovit_tpu_torch/csrc/window_block.cu",
+                               "cryovit_tpu/ops/window_attention.py:112"),
+    "window_block_mlp": ("cryovit_tpu_torch/csrc/window_block.cu",
+                         "cryovit_tpu/ops/window_attention.py:226"),
+    "window_attention": ("cryovit_tpu_torch/csrc/window_attention.cu",
+                         "cryovit_tpu/ops/window_attention.py:311"),
 }
+DINO_KERNELS = ("flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd")
 # one train step of the decoder: 6 tail convs forward and 6 input gradients
 # through conv3d_dm, 6 weight gradients, 2 ConvTransposes each way
 TRAIN_STEP_LAUNCHES = {"flash_attention": 0, "conv3d_dm": 12, "convt2x_dm": 2,
-                       "conv3d_dm_dw": 6, "convt2x_dm_bwd": 2}
+                       "conv3d_dm_dw": 6, "convt2x_dm_bwd": 2, "window_block_attention": 0,
+                       "window_block_mlp": 0, "window_attention": 0}
+# Hiera-L's stage 3 for a batch of 64 slices at 512²: 256 windows of 16×16
+# tokens, 576 channels in 8 heads of 72, MLP 2304; and its global blocks,
+# 64 images of 32×32 tokens
+WINDOW_SHAPE = (256, 256, 576, 8, 2304)  # (windows, tokens, C, heads, hidden)
+GLOBAL_SHAPE = (64, 1024, 8, 72)  # (batch, tokens, heads, head dim)
+# per 64-slice batch at 512², from the gates over HieraConfig.large(): of the
+# 36 stage-3 blocks, block 8 pools and 23, 33, 43 are global
+SAM_BATCH_LAUNCHES = {"window_block_attention": 32, "window_block_mlp": 32, "window_attention": 3}
 # H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -139,7 +167,8 @@ def compare(name, kernel_fn, plain_fn, library_fn, iters, rel_tols=(2.0**-6,)):
         err = max(err, e)
     del got, want
     k_ms, p_ms = time_ms(kernel_fn, iters), time_ms(plain_fn, max(1, iters // 4))
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=time_ms(library_fn, iters))
+    lib_ms = time_ms(library_fn, iters) if library_fn is not None else None
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms)
 
 
 def _accumulate(total: dict | None, row: dict) -> dict:
@@ -312,11 +341,83 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
         total = _accumulate(total, row)
         del x, gy, x_cf, g_cf
     results["convt2x_dm_bwd"] = total
+    results.update(window_kernel_rows(dev, randn))
     log("kernels", "ms of the four conv kernels are sums over the shapes above (one decoder "
         f"tail pass: forward at {DEPTH} slices, backward at {TRAIN_DEPTH}; conv3d_dm's "
         f"JSON ms is the serving pass, its max|err| covers the train step's calls too); "
-        "flash_attention ms is one call (one block, one chunk)")
+        "flash_attention and the three Hiera kernels' ms are one call each (one block)")
     torch.cuda.empty_cache()
+    return results
+
+
+def window_kernel_rows(dev: torch.device, randn) -> dict[str, dict]:
+    """The three Hiera kernels against their plain versions at Hiera-L's
+    stage-3 shapes for a 64-slice batch at 512²."""
+    from cryovit_tpu_torch.ops import window_attention as wa
+
+    def block_params(c, f, c_out):
+        inner = c if f == 3 * c else f
+        return (1.0 + randn(c, scale=0.1).float(), randn(c, scale=0.1).float(),
+                randn(f, c, scale=c**-0.5), randn(f, scale=0.1),
+                randn(c_out, inner, scale=inner**-0.5), randn(c_out, scale=0.1))
+
+    results = {}
+    n, t, c, heads, hidden = WINDOW_SHAPE
+    rows, d = n * t, c // heads
+    x = randn(n, t, c)
+    ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj = block_params(c, 3 * c, c)
+    p = (ln_w, ln_b, *wa.fold_q_scale(w_qkv, b_qkv, heads), w_proj, b_proj)
+    row = compare(
+        "window_block_attention",
+        lambda: wa.window_block_attention(x, *p, heads),
+        lambda: wa.window_block_attention_reference(x, *p, heads),
+        None, iters=10,
+    )
+    flops = 2 * rows * c * 3 * c + 4 * n * heads * t * t * d + 2 * rows * c * c
+    n_bytes = 2 * 2 * rows * c + 2 * (4 * c * c + 4 * c) + 4 * 2 * c
+    results["window_block_attention"] = row = with_bound(row, n_bytes, flops)
+    log("kernels", f"window_block_attention N={n} T={t} C={c} ({heads}x{d}): max|err| "
+        f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
+        f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library: none (no single PyTorch call "
+        f"computes LN + qkv + attention + proj + residual), bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+
+    p = block_params(c, hidden, c)
+    row = compare(
+        "window_block_mlp",
+        lambda: wa.window_block_mlp(x, *p), lambda: wa.window_block_mlp_reference(x, *p),
+        None, iters=10,
+    )
+    flops = 2 * 2 * rows * c * hidden
+    n_bytes = 2 * 2 * rows * c + 2 * (2 * c * hidden + hidden + c) + 4 * 2 * c
+    results["window_block_mlp"] = row = with_bound(row, n_bytes, flops)
+    log("kernels", f"window_block_mlp {rows} tokens x {c} -> {hidden} -> {c}: max|err| "
+        f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
+        f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library: none (no single PyTorch call "
+        f"computes LN + fc1 + GELU + fc2 + residual), bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    del x, p
+
+    b, t, heads, d = GLOBAL_SHAPE
+    c = heads * d
+    qkv = randn(b, t, 3 * c)  # q, k, v as column views, as the global blocks pass them
+    qkv[..., :c] *= d**-0.5 * wa.LOG2E  # q pre-scaled, as the folded projection gives it
+    q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
+    qh, kh, vh = (a.reshape(b, t, heads, d).transpose(1, 2).contiguous() for a in (q, k, v))
+    row = compare(
+        "window_attention",
+        lambda: wa.window_attention(q, k, v, heads),
+        lambda: wa.window_attention_reference(q, k, v, heads),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0 / wa.LOG2E),
+        iters=10,
+    )
+    flops = 4 * b * heads * t * t * d
+    results["window_attention"] = row = with_bound(row, 2 * 4 * b * t * c, flops)
+    log("kernels", f"window_attention B={b} T={t} H={heads}x{d}: max|err| "
+        f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
+        f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+        f"(scaled_dot_product_attention, (B, H, T, {d}) bf16), bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
     return results
 
 
@@ -402,6 +503,148 @@ def train_reference_phase(dev: torch.device) -> None:
         raise AssertionError(f"gradient of {worst_name} disagrees: relative error {worst}")
 
 
+def _pyramid_agreement(got: list, want: list) -> list[tuple[float, float]]:
+    """(cosine, relative L2 error) of each FPN level of got against want."""
+    out = []
+    for a, b in zip(got, want, strict=True):
+        a = torch.from_numpy(a.astype("float64")).ravel()
+        b = torch.from_numpy(b.astype("float64")).ravel()
+        out.append(((a @ b / (a.norm() * b.norm())).item(), ((a - b).norm() / b.norm()).item()))
+    return out
+
+
+def sam_reference_phase(dev: torch.device) -> dict[str, int]:
+    """The SAM2 encoder on 2 slices at 512², GPU bf16 through the kernels vs
+    CPU f32 through the plain versions, the same seeded weights: Hiera of
+    width 72 (one head of 72 in every stage), stages (1, 1, 3, 1), stage-3
+    window 16 on a 32×32 grid and block 4 global, so one block takes each
+    kernel gate; d_model 256. Per FPN level cosine >= 0.9995 and relative L2
+    error <= 0.03 (the CPU's bf16 plain path gives >= 0.99995 and <= 0.0094
+    against f32 on the same input)."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.models.sam2.config import HieraConfig, SAM2Config
+    from cryovit_tpu_torch.models.sam2.encoder import make_image_encoder, sine_position_encoding
+    from cryovit_tpu_torch.run.sam_features import SamFeatureExtractor, make_sam_encoder_state
+
+    cfg = SAM2Config(hiera=HieraConfig(embed_dim=72, num_heads=1, stages=(1, 1, 3, 1),
+                                       window_spec=(8, 4, 16, 8), global_att_blocks=(4,)))
+    sd = make_sam_encoder_state(cfg=cfg, random_init=True, device="cpu", seed=3)
+    stack = np.random.default_rng(5).random((2, 512, 512)).astype(np.float32)
+    kernels.reset_launch_counts()
+    gpu = SamFeatureExtractor(make_image_encoder(sd, cfg, device=dev), batch_size=2).extract(stack)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    encoder = make_image_encoder(sd, cfg, device="cpu", dtype=torch.float32)
+    cpu = SamFeatureExtractor(encoder, batch_size=2).extract(stack)
+    agree = _pyramid_agreement(gpu["backbone_fpn"], cpu["backbone_fpn"])
+    log("sam-ref", "2x512x512 slices, Hiera 72-wide (1 head of 72 per stage), GPU bf16 vs CPU "
+        "f32 per FPN level: " + ", ".join(f"level {i} cos {c:.6f} rel L2 {r:.4g}"
+                                          for i, (c, r) in enumerate(agree))
+        + f" (limits cos >= 0.9995, rel <= 0.03); launches {counts}")
+    # the encodings pass through the compute dtype: bf16 on the GPU, then fp16
+    pos_equal = all(
+        np.array_equal(p[0], torch.from_numpy(sine_position_encoding(*p.shape[2:], cfg.d_model)
+                                              .copy()).to(torch.bfloat16).to(torch.float16)
+                       .permute(2, 0, 1).numpy())
+        for p in gpu["vision_pos_enc"]
+    )
+    checks = {
+        "every level within the limits": all(c >= 0.9995 and r <= 0.03 for c, r in agree),
+        "each Hiera kernel launched once": all(counts[k] == 1 for k in SAM_BATCH_LAUNCHES),
+        "position encodings: the f32 sine table through bf16 and fp16": pos_equal,
+    }
+    _report_checks(checks, "SAM reference")
+    return counts
+
+
+def sam_serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
+    """``features --use-sam``'s extractor on a 64×512×512 tomogram at
+    Hiera-L full width (``SAM2Config.large()``, seeded weights), bf16, slice
+    batch 64."""
+    import importlib.util
+
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.io import load_files_from_path, write_mrc
+    from cryovit_tpu_torch.models.sam2.config import SAM2Config
+    from cryovit_tpu_torch.run.dino_features import save_feature_hdf
+    from cryovit_tpu_torch.run.sam_features import (
+        SamFeatureExtractor,
+        extract_sam_features,
+        load_sam_encoder,
+    )
+
+    name = torch.cuda.get_device_name(0)
+    rng = np.random.default_rng(12)
+    tomo_dir = workdir / "sam_tomograms"
+    tomo_dir.mkdir()
+    write_mrc(tomo_dir / "synthetic.mrc", rng.integers(0, 256, size=(DEPTH, SIDE, SIDE), dtype=np.uint8))
+    files = load_files_from_path(tomo_dir)
+
+    t0 = time.perf_counter()
+    encoder = load_sam_encoder(random_init=True, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in encoder.parameters())
+    log("sam", f"SAM2 Hiera-L + FPN ({n_params / 1e6:.1f} M params, "
+        f"{encoder.trunk.blocks[0].attn.qkv.weight.dtype}) built in {time.perf_counter() - t0:.1f} s")
+    extractor = SamFeatureExtractor(encoder, batch_size=SLICE_BATCH)
+    extractor.extract(np.zeros((8, SIDE, SIDE), np.float32))  # warm-up (one padded batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    path, volume, feats = next(iter(extract_sam_features(files, extractor)))
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-DEPTH // SLICE_BATCH)
+    want_counts = {k: (n * batches if k in SAM_BATCH_LAUNCHES else 0)
+                   for k, n in {**dict.fromkeys(kernels.KERNELS, 0), **SAM_BATCH_LAUNCHES}.items()}
+    log("sam", f"SAM2 extraction: {DEPTH} slices in {t_feat:.3f} s = {DEPTH / t_feat:.2f} "
+        f"slices/s, MRC read and fp16 pyramids back on the host included ({name})")
+    log("sam", f"peak device memory {peak / 2**30:.2f} GiB ({name})")
+    log("sam", f"launches during the SAM serving path: {counts}")
+    shapes = [(DEPTH, 256, SIDE // s, SIDE // s) for s in (4, 8, 16)]
+    fpn, pos = feats["backbone_fpn"], feats["vision_pos_enc"]
+    checks = {
+        f"backbone_fpn {shapes} fp16": [f.shape for f in fpn] == shapes
+        and all(f.dtype == np.float16 for f in fpn),
+        f"vision_pos_enc {shapes} fp16": [p.shape for p in pos] == shapes
+        and all(p.dtype == np.float16 for p in pos),
+        "pyramids finite": all(bool(np.isfinite(f).all()) for f in fpn + pos),
+        "features vary over slices and channels": all(
+            float(f.astype(np.float32).std(axis=(0, 1)).mean()) > 0 for f in fpn),
+        f"launches {want_counts}": counts == want_counts,
+    }
+    log("sam", "backbone_fpn std per level " + " ".join(
+        f"{f.astype(np.float32).std():.4f}" for f in fpn))
+    _profile(lambda: extractor.extract(volume[:SLICE_BATCH]), f"one {SLICE_BATCH}-slice SAM2 batch",
+             SAM_PROFILE_GROUPS, "elementwise, norms, softmax, copies on the device", name, top=15)
+    _report_checks(checks, "SAM serving path")
+    if importlib.util.find_spec("h5py") is None:
+        log("sam", "h5py is not installed here: save_feature_hdf (run_sam's writer) is not run; "
+            "the pyramids above come from extract_sam_features, the step right below it")
+    else:
+        save_feature_hdf({"data": volume}, feats, f"{path.stem}.hdf", workdir / "sam_features")
+        log("sam", f"wrote sam_features/{path.stem}.hdf")
+    del encoder, extractor
+    torch.cuda.empty_cache()
+    return counts
+
+
+SAM_PROFILE_GROUPS = (
+    ("port kernels (window blocks, attention)", ("window_attention", "ln_gemm")),
+    ("cuBLAS / cuDNN (XLA-path projections, patch embed, FPN)",
+     ("xmma", "cutlass", "nvjet", "gemm", "cudnn", "implicit", "conv")),
+    ("host <-> device copies", ("Memcpy",)),
+)
+
+
 def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     import importlib.util
 
@@ -467,7 +710,7 @@ def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         f"features {(1536, DEPTH, SIDE // 16, SIDE // 16)} fp16":
             feats.shape == (1536, DEPTH, SIDE // 16, SIDE // 16) and feats.dtype == np.float16,
         "features finite": bool(np.isfinite(feats).all()),
-        "every forward kernel launched": all(
+        "every forward kernel of the path launched": all(
             counts[k] > 0 for k in ("flash_attention", "conv3d_dm", "convt2x_dm")
         ),
     }
@@ -640,7 +883,7 @@ def training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         f"served probabilities {(TRAIN_DEPTH, SIDE, SIDE)} finite in [0, 1]":
             probs.shape == (TRAIN_DEPTH, SIDE, SIDE) and bool(np.isfinite(probs).all())
             and bool(probs.min() >= 0.0 and probs.max() <= 1.0),
-        "every kernel launched": all(n > 0 for n in counts.values()),
+        "every kernel of the path launched": all(counts[k] > 0 for k in DINO_KERNELS),
     }
     log("train", f"SWA moved the weights by up to {swa_moved:.3g}; served probabilities mean "
         f"{probs.mean():.4f}, blob voxels {probs[label == 1].mean():.4f}, background "
@@ -668,7 +911,8 @@ def training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         f"{step_ms:.2f} ms (all {' '.join(f'{t:.2f}' for t in times)}) = "
         f"{voxels / step_ms * 1e3 / 1e6:.1f} M voxels/s ({name})")
     log("train", f"launches in one train step: {step_counts}")
-    _profile_step(trainer, data, target, name)
+    _profile(lambda: trainer.train_step(data, target), "one train step", PROFILE_GROUPS,
+             "elementwise, norms, reductions, copies", name)
     _report_checks(checks, "training path")
     return counts
 
@@ -681,31 +925,31 @@ PROFILE_GROUPS = (
 )
 
 
-def _profile_step(trainer, data, target, name: str) -> None:
-    """Device time of one train step by kernel and by layer, from
-    torch.profiler (device kernels only, not the host ops that launch them)."""
+def _profile(run, what: str, groups, rest: str, name: str, top: int = 12) -> None:
+    """Device time of one call of ``run`` by kernel and by layer (the first
+    of ``groups`` whose name fragments a kernel's name holds, else ``rest``),
+    from torch.profiler: device activity only, not the host ops that launch
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(data, target)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total = sum(e.self_device_time_total for e in rows) / 1e3
-    groups: dict[str, float] = {}
+    by_group: dict[str, float] = {}
     for e in rows:
-        group = next((g for g, keys in PROFILE_GROUPS if any(k in e.key for k in keys)),
-                     "elementwise, norms, reductions, copies")
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-    log("profile", f"one train step: kernels busy {total:.2f} ms of {wall:.2f} ms wall "
-        f"(profiled) ({name})")
-    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        group = next((g for g, keys in groups if any(k in e.key for k in keys)), rest)
+        by_group[group] = by_group.get(group, 0.0) + e.self_device_time_total / 1e3
+    log("profile", f"{what}: device busy {total:.2f} ms of {wall:.2f} ms wall (profiled) ({name})")
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         log("profile", f"{ms:9.3f} ms ({100 * ms / total:4.1f} %)  {group}")
-    for e in rows[:12]:
+    for e in rows[:top]:
         log("profile", f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x  {e.key[:100]}")
 
 
@@ -715,8 +959,9 @@ def _kernel_names(build_log: str):
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"((?:flash_attention|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
-                          r"|sum_partials)_kernel)(I(?:Li\d+E)+E)?", line)
-            args = ",".join(re.findall(r"Li(\d+)E", m[2])) if m and m[2] else ""
+                          r"|sum_partials|window_attention|ln_gemm)_kernel)(I(?:L[ib]\d+E)+E)?",
+                          line)
+            args = ",".join(re.findall(r"L[ib](\d+)E", m[2])) if m and m[2] else ""
             kernel = (f"{m[1]}<{args}>" if args else m[1]) if m else line
         elif "Used" in line:
             yield kernel, line.split(":", 1)[1].strip()
@@ -744,14 +989,17 @@ def main() -> int:
     results = kernel_phase(dev)
     reference_phase(dev)
     train_reference_phase(dev)
+    sam_reference_phase(dev)
     with tempfile.TemporaryDirectory(prefix="cryovit_smoke_") as tmp:
         serving = serving_phase(dev, Path(tmp))
         training = training_phase(dev, Path(tmp))
+        sam = sam_serving_phase(dev, Path(tmp))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": serving[name] + training[name], **{k: results[name][k] for k in keys}}
+         "launches": serving[name] + training[name] + sam[name],
+         **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
     print(json.dumps(report))

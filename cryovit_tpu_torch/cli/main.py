@@ -1,9 +1,10 @@
 """``cryovit-torch`` command-line interface (port of ``cryovit_tpu/cli/main.py``).
 
 The verbs and flags follow the JAX package's ``cryovit``. Ported so far:
-``features`` (DINOv2 extraction), ``train`` (CryoVIT on DINOv2 features)
-and ``infer --fused`` (raw tomograms → masks). ``evaluate`` and file-based
-``infer`` exit with a "not yet ported" message.
+``features`` (DINOv2 extraction, and SAM2 pyramids with ``--use-sam``),
+``train`` (CryoVIT on DINOv2 features) and ``infer --fused`` (raw tomograms
+→ masks). ``evaluate`` and file-based ``infer`` exit with a "not yet
+ported" message.
 
 Every verb runs on the GPU unless ``--device cpu`` asks for the CPU (the
 port's counterpart of ``JAX_PLATFORMS=cpu``); without a GPU the default
@@ -34,10 +35,12 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--version", action="version", version=f"cryovit_tpu_torch {__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("features", help="Compute DINOv2 features for a set of tomograms.")
+    p = sub.add_parser("features", help="Compute DINOv2 (or SAM2) features for a set of tomograms.")
     p.add_argument("tomograms", help="Folder or .txt manifest of tomograms to process.")
     p.add_argument("result_folder", help="Folder where the DINO features are saved.")
     p.add_argument("--batch-size", type=int, default=64, help="Slices per extraction step.")
+    p.add_argument("--use-sam", action="store_true",
+                   help="Extract SAM2 feature pyramids instead of DINOv2.")
     p.add_argument("--random-init", action="store_true", help=argparse.SUPPRESS)
 
     p = sub.add_parser("infer", help="Segment tomograms with a trained model.")
@@ -97,14 +100,17 @@ def main(argv: list[str] | None = None) -> int:
     from cryovit_tpu_torch.io import load_files_from_path
 
     if args.command == "features":
-        from cryovit_tpu_torch.run.dino_features import run_dino
+        if args.use_sam:
+            from cryovit_tpu_torch.run.sam_features import run_sam as run
+        else:
+            from cryovit_tpu_torch.run.dino_features import run_dino as run
 
         tomo_path = Path(args.tomograms)
         if not tomo_path.exists():
             raise FileNotFoundError(f"Tomograms path {tomo_path} does not exist.")
         result = Path(args.result_folder)
         result.mkdir(parents=True, exist_ok=True)
-        run_dino(
+        run(
             load_files_from_path(tomo_path), result,
             batch_size=args.batch_size, random_init=args.random_init, device=args.device,
         )

@@ -10,6 +10,10 @@
 - :func:`cryovit_from_jax`: the JAX ``CryoVITModule`` params → the
   reference CryoVIT state dict (the layout
   ``cryovit_tpu.train.torch_export.export_cryovit_state_dict`` writes).
+- :func:`sam2_encoder_from_jax`: the JAX SAM2 ``ImageEncoder`` params → port
+  state dict (the published sam2 names without ``image_encoder.``).
+- :func:`sam2_encoder_from_published`: a published sam2 checkpoint's
+  ``model`` dict (e.g. ``sam2.1_hiera_large.pt``) → port state dict.
 
 Layout rules: a flax Dense kernel ``(in, out)`` is a torch Linear weight
 ``(out, in)``; a flax conv kernel ``(kd, kh, kw, in, out)`` is a torch Conv3d
@@ -30,6 +34,8 @@ __all__ = [
     "dinov2_from_jax",
     "dinov2_from_torch_hub",
     "fold_patch_embed",
+    "sam2_encoder_from_jax",
+    "sam2_encoder_from_published",
 ]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -178,3 +184,49 @@ def cryovit_from_jax(params: dict) -> dict[str, np.ndarray]:
     emit("output_layer.0", params["Conv_1"], conv)
     emit("output_layer.2", params["Conv_2"], conv)
     return out
+
+
+def _conv2d_w(k: Any) -> np.ndarray:
+    """flax (kh, kw, in, out) → torch Conv2d (out, in, kh, kw)."""
+    return np.ascontiguousarray(_np(k).transpose(3, 2, 0, 1))
+
+
+def sam2_encoder_from_jax(params: dict) -> dict[str, np.ndarray]:
+    """JAX SAM2 ``ImageEncoder`` params → port state dict. The JAX
+    ``neck_conv{i}`` follows the trunk's output order (high resolution
+    first); sam2's ``neck.convs.{j}`` the reverse (``models/sam2/
+    convert.py:105-114`` of the JAX package)."""
+    params = _params(params)
+    trunk = params["trunk"]
+    out = {
+        "trunk.patch_embed.proj.weight": _conv2d_w(trunk["patch_embed"]["kernel"]),
+        "trunk.patch_embed.proj.bias": _np(trunk["patch_embed"]["bias"]),
+    }
+    for name in ("pos_embed", "pos_embed_window"):  # (h, w, C) → (1, C, h, w)
+        out[f"trunk.{name}"] = np.ascontiguousarray(_np(trunk[name]).transpose(2, 0, 1)[None])
+    depth = sum(1 for k in trunk if k.startswith("block"))
+    for i in range(depth):
+        block, p = trunk[f"block{i}"], f"trunk.blocks.{i}"
+        dense = {"attn.qkv": block["attn"]["qkv"], "attn.proj": block["attn"]["proj"],
+                 "mlp.layers.0": block["mlp_fc1"], "mlp.layers.1": block["mlp_fc2"]}
+        if "proj" in block:
+            dense["proj"] = block["proj"]
+        for name, tree in dense.items():
+            out[f"{p}.{name}.weight"] = np.ascontiguousarray(_np(tree["kernel"]).T)
+            out[f"{p}.{name}.bias"] = _np(tree["bias"])
+        for norm in ("norm1", "norm2"):
+            out[f"{p}.{norm}.weight"] = _np(block[norm]["scale"])
+            out[f"{p}.{norm}.bias"] = _np(block[norm]["bias"])
+    levels = sum(1 for k in params if k.startswith("neck_conv"))
+    for i in range(levels):
+        conv, p = params[f"neck_conv{i}"], f"neck.convs.{levels - 1 - i}.conv"
+        out[f"{p}.weight"] = _conv2d_w(conv["kernel"])
+        out[f"{p}.bias"] = _np(conv["bias"])
+    return out
+
+
+def sam2_encoder_from_published(state_dict: dict[str, Any]) -> dict[str, np.ndarray]:
+    """The image encoder of a published sam2 checkpoint (its ``model``
+    dict): the ``image_encoder.*`` tensors with that prefix stripped."""
+    prefix = "image_encoder."
+    return {k[len(prefix):]: _np(v) for k, v in state_dict.items() if k.startswith(prefix)}

@@ -45,10 +45,13 @@ NVCC_FLAGS = [
 
 KERNELS = (  # launch-counter names
     "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
+    "window_block_attention", "window_block_mlp", "window_attention",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
 _ARGTYPES = {
     # q, k, v, bias, out, batch, seq, heads, row_stride, batch_stride,
     # kv_len, scale_log2, stream
@@ -66,6 +69,17 @@ _ARGTYPES = {
     # g, x, w, dx, partial, dw, batch, depth, ci, co, height, width, nblocks,
     # stream
     "cryovit_convt2x_dm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, batch, seq, heads, head_dim, row_stride, batch_stride,
+    # stream
+    "cryovit_window_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P],
+    # x, ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj, qkv, attn, out, windows,
+    # tokens, channels, heads, eps, stream
+    "cryovit_window_block_attention": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+    ],
+    # x, ln_w, ln_b, w1, b1, w2, b2, hidden, out, rows, channels, hidden_dim,
+    # eps, stream
+    "cryovit_window_block_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 

@@ -1,9 +1,14 @@
-"""Bicubic resize with torch ``F.interpolate`` parity, as matrix multiplies.
+"""Separable resizes as matrix multiplies, ``out = Rh @ x @ Rwᵀ``.
 
-Port of ``cryovit_tpu/ops/resize.py``. The numpy matrix builders carry over
-unchanged (Keys cubic kernel with A = −0.75, half-pixel centres, clamped
-border taps); the resize itself is two ``torch.matmul``s,
-``out = Rh @ x @ Rwᵀ``, as in ``cryovit_tpu/models/fused.py:77-78``.
+Port of ``cryovit_tpu/ops/resize.py``:
+
+- bicubic with torch ``F.interpolate`` parity (Keys cubic kernel with
+  A = −0.75, half-pixel centres, clamped border taps), as in
+  ``cryovit_tpu/models/fused.py:77-78``;
+- linear with ``jax.image.resize(..., "linear")`` parity, the SAM2
+  extractor's resize to 512² (``cryovit_tpu/run/sam_features.py:149``):
+  half-pixel centres, a triangle kernel widened by the scale factor on a
+  downscale (antialiasing), weights renormalised per output sample.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["bicubic_resize_matrix", "resize_bicubic_2d"]
+__all__ = ["bicubic_resize_matrix", "linear_resize_matrix", "resize_bicubic_2d", "resize_linear_2d"]
 
 
 def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -50,10 +55,43 @@ def bicubic_resize_matrix(in_size: int, out_size: int, a: float = -0.75) -> np.n
     return mat
 
 
+def _resize_2d(x: torch.Tensor, out_h: int, out_w: int, matrix) -> torch.Tensor:
+    """``Rh @ x @ Rwᵀ`` over the last two axes of ``x`` (…, H, W) in f32,
+    with ``matrix(in_size, out_size)`` building each side's weights."""
+    h, w = x.shape[-2], x.shape[-1]
+    rh = torch.from_numpy(matrix(h, out_h).copy()).to(x.device)
+    rw = torch.from_numpy(matrix(w, out_w).copy()).to(x.device)
+    return torch.matmul(torch.matmul(rh, x.float()), rw.t())
+
+
 def resize_bicubic_2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize the last two axes of ``x`` (…, H, W) in f32 with torch-parity
     bicubic weights."""
-    h, w = x.shape[-2], x.shape[-1]
-    rh = torch.from_numpy(bicubic_resize_matrix(h, out_h).copy()).to(x.device)
-    rw = torch.from_numpy(bicubic_resize_matrix(w, out_w).copy()).to(x.device)
-    return torch.matmul(torch.matmul(rh, x.float()), rw.t())
+    return _resize_2d(x, out_h, out_w, bicubic_resize_matrix)
+
+
+@lru_cache(maxsize=64)
+def linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense ``(out_size, in_size)`` f32 matrix of ``jax.image.resize``'s
+    antialiased linear method: the triangle kernel ``max(0, 1 − |x|)``
+    stretched by ``in/out`` when downscaling, each output's weights summed
+    to 1, outputs whose sample falls outside the input zeroed. Cached
+    numpy; callers copy it to their device."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float64)[:, None]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - x)  # (in, out)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    mat = np.ascontiguousarray(np.where(inside[None, :], w, 0.0).T).astype(np.float32)
+    mat.flags.writeable = False
+    return mat
+
+
+def resize_linear_2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize the last two axes of ``x`` (…, H, W) in f32 with the
+    antialiased linear weights of :func:`linear_resize_matrix`."""
+    return _resize_2d(x, out_h, out_w, linear_resize_matrix)

@@ -43,14 +43,14 @@ __all__ = [
 TORCH_HUB_WEIGHTS = "dinov2_vitg14_reg4_pretrain.pth"
 
 
-def default_model_dir() -> Path:
-    """The JAX package's default DINOv2 directory (``configs/paths/
-    default.yaml`` and ``configs/dino_features.yaml``):
-    ``$CRYOVIT_MODEL_DIR/DINOv2``, where ``CRYOVIT_MODEL_DIR`` defaults to
-    ``$CRYOVIT_DATA_DIR/foundation_models`` and ``CRYOVIT_DATA_DIR`` to
-    ``/tmp/cryovit-data``."""
+def default_model_dir(family: str = "DINOv2") -> Path:
+    """The JAX package's default weights directory of a foundation model
+    (``configs/paths/default.yaml``, ``configs/{dino,sam}_features.yaml``):
+    ``$CRYOVIT_MODEL_DIR/<family>`` (``DINOv2`` or ``SAM2``), where
+    ``CRYOVIT_MODEL_DIR`` defaults to ``$CRYOVIT_DATA_DIR/foundation_models``
+    and ``CRYOVIT_DATA_DIR`` to ``/tmp/cryovit-data``."""
     data_dir = os.environ.get("CRYOVIT_DATA_DIR", "/tmp/cryovit-data")
-    return Path(os.environ.get("CRYOVIT_MODEL_DIR", f"{data_dir}/foundation_models")) / "DINOv2"
+    return Path(os.environ.get("CRYOVIT_MODEL_DIR", f"{data_dir}/foundation_models")) / family
 
 
 def _random_dinov2_state_dict(
@@ -151,13 +151,15 @@ class DinoExtractor:
 
 def save_feature_hdf(
     source: dict[str, np.ndarray],
-    features: np.ndarray,
+    features: np.ndarray | dict[str, list[np.ndarray]],
     tomo_name: str,
     dst_dir: Path,
 ) -> Path:
     """Write the training-ready HDF5 (reference ``_save_data:109-153``):
-    gzip ``data`` + ``labels/<k>`` copied from the source, ``dino_features``
-    fp16 uncompressed."""
+    gzip ``data`` + ``labels/<k>`` copied from the source, then either
+    ``dino_features`` fp16 uncompressed or, for a dict of SAM2 pyramids,
+    ``sam_features/<key>/<level>`` (a source's ``dino_features`` is kept,
+    gzip)."""
     import h5py
 
     dst_dir = Path(dst_dir)
@@ -169,7 +171,14 @@ def save_feature_hdf(
                 f.create_dataset("data", data=arr, compression="gzip")
             elif key != "dino_features":
                 f.create_dataset(f"labels/{key}", data=arr, compression="gzip")
-        f.create_dataset("dino_features", data=features)
+        if isinstance(features, dict):
+            if "dino_features" in source:
+                f.create_dataset("dino_features", data=source["dino_features"], compression="gzip")
+            for key, levels in features.items():
+                for i, level in enumerate(levels):
+                    f.create_dataset(f"sam_features/{key}/{i}", data=np.ascontiguousarray(level))
+        else:
+            f.create_dataset("dino_features", data=features)
     return path
 
 

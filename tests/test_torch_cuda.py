@@ -16,6 +16,7 @@ from cryovit_tpu_torch import kernels
 from cryovit_tpu_torch.ops import conv3d_dm as cd
 from cryovit_tpu_torch.ops import convt_dm as ct
 from cryovit_tpu_torch.ops import flash_attention as fa
+from cryovit_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +51,73 @@ def test_attention_kernel_matches_plain(cuda, b, n, heads, true_len):
            fa.flash_attention_reference(q, k, v, bias, heads, true_len))
 
 
+def _block_params(dev, c, f, c_out, seed=1):
+    """LayerNorm affine (f32) and a Linear pair (c → f, then → c_out) in
+    bf16, torch layout: the arguments after x of the window-block ops."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    inner = c if f == 3 * c else f  # window_block_attention: proj is (C, C)
+    return (
+        1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+        randn(f, c, scale=c**-0.5).bfloat16(), randn(f, scale=0.1).bfloat16(),
+        randn(c_out, inner, scale=inner**-0.5).bfloat16(), randn(c_out, scale=0.1).bfloat16(),
+    )
+
+
+@pytest.mark.parametrize("n,t,heads", [(3, 256, 8), (5, 144, 1), (2, 200, 2)])
+def test_window_block_attention_kernel_matches_plain(cuda, n, t, heads):
+    """Hiera-L's stage-3 block width (8 x 72) at 256-token windows, one head
+    of 72, and token counts that leave ragged row, query and key tiles."""
+    c = heads * 72
+    x = _randn(cuda, n, t, c)
+    ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj = _block_params(cuda, c, 3 * c, c)
+    params = (ln_w, ln_b, *wa.fold_q_scale(w_qkv, b_qkv, heads), w_proj, b_proj)
+    _close(wa.window_block_attention(x, *params, heads),
+           wa.window_block_attention_reference(x, *params, heads))
+
+
+@pytest.mark.parametrize("n,t,c", [(3, 256, 576), (5, 144, 72), (1, 7, 16)])
+def test_window_block_mlp_kernel_matches_plain(cuda, n, t, c):
+    x = _randn(cuda, n, t, c)
+    params = _block_params(cuda, c, 4 * c, c)
+    _close(wa.window_block_mlp(x, *params), wa.window_block_mlp_reference(x, *params))
+
+
+@pytest.mark.parametrize("b,t,heads", [(2, 1024, 8), (3, 200, 1), (1, 77, 2)])
+def test_window_attention_kernel_matches_plain(cuda, b, t, heads):
+    """q (pre-scaled), k and v as column views of one (B, T, 3C)
+    projection, as the global blocks pass them."""
+    c = heads * 72
+    qkv = _randn(cuda, b, t, 3 * c)
+    qkv[..., :c] *= 72**-0.5 * wa.LOG2E
+    q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
+    _close(wa.window_attention(q, k, v, heads), wa.window_attention_reference(q, k, v, heads))
+
+
+def test_window_kernels_refuse_what_they_cannot_take(cuda):
+    """f32, head widths without a kernel and non-contiguous x raise before a
+    launch; a launch the library refuses (head width 64 past the wrapper)
+    returns an error code, and ``kernels.check`` raises on it."""
+    x = _randn(cuda, 2, 128, 144)
+    params = _block_params(cuda, 144, 432, 144)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wa.window_block_attention(x.float(), *params, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        wa.window_block_attention(x, *params, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        wa.window_block_mlp(x.transpose(0, 1), *_block_params(cuda, 144, 576, 144))
+    with pytest.raises(ValueError, match="head dim"):
+        wa.window_attention(x[..., :128], x[..., :128], x[..., :128], 2)
+    out = torch.empty(2, 128, 128, device=cuda, dtype=torch.bfloat16)
+    rc = kernels.load_library().cryovit_window_attention(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 2, 128, 2, 64, 144, 128 * 144,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kernels.check(rc, "window_attention")
+
+
 @pytest.mark.parametrize("ci,co,h,w,dil", [(8, 1, 7, 33, 1), (16, 8, 20, 64, 2), (32, 32, 9, 40, 4)])
 def test_conv3d_kernel_matches_plain(cuda, ci, co, h, w, dil):
     x = _randn(cuda, 2, 5, ci, h, w)
@@ -72,9 +140,14 @@ def test_each_launch_counts_once(cuda):
     ct.convt2x_dm(x, _randn(cuda, 1, 2, 2, 8, 8))
     cd.conv3d_dm_dw(x, x)
     ct.convt2x_dm_bwd(_randn(cuda, 1, 2, 8, 8, 8), x, _randn(cuda, 1, 2, 2, 8, 8))
+    xw = _randn(cuda, 2, 128, 72)
+    wa.window_block_attention(xw, *_block_params(cuda, 72, 216, 72), 1)
+    wa.window_block_mlp(xw, *_block_params(cuda, 72, 288, 72))
+    wa.window_attention(xw, xw, xw, 1)
     assert kernels.launch_counts() == {
         "flash_attention": 0, "conv3d_dm": 1, "convt2x_dm": 2, "conv3d_dm_dw": 1,
-        "convt2x_dm_bwd": 1,
+        "convt2x_dm_bwd": 1, "window_block_attention": 1, "window_block_mlp": 1,
+        "window_attention": 1,
     }
 
 

@@ -16,6 +16,11 @@ from cryovit_tpu_torch.io import load_data, load_files_from_path, read_mrc, writ
 from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
 from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
 from cryovit_tpu_torch.ops.flash_attention import flash_attention
+from cryovit_tpu_torch.ops.window_attention import (
+    window_attention,
+    window_block_attention,
+    window_block_mlp,
+)
 
 
 def test_port_imports_no_jax_flax_or_h5py():
@@ -66,19 +71,36 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
     assert dx.shape == x.shape and dw.shape == (1, 2, 2, 8, 16)
     q = torch.from_numpy(rng.standard_normal((2, 9, 128)).astype(np.float32))
     assert flash_attention(q, q, q, torch.zeros(3, 128), 2).shape == (2, 9, 128)
+    xw = torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32))
+    ln = (torch.ones(8), torch.zeros(8))
+    assert window_block_attention(xw, *ln, torch.ones(24, 8), torch.zeros(24), torch.ones(8, 8),
+                                  torch.zeros(8), 2).shape == (2, 16, 8)
+    assert window_block_mlp(xw, *ln, torch.ones(32, 8), torch.zeros(32), torch.ones(8, 32),
+                            torch.zeros(8)).shape == (2, 16, 8)
+    assert window_attention(xw, xw, xw, 2).shape == (2, 16, 8)
     assert kernels._lib is None
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
     assert set(kernels.KERNELS) == {
         "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
+        "window_block_attention", "window_block_mlp", "window_attention",
     }
 
 
-@pytest.mark.parametrize("op", ["attention", "conv3d", "convt", "conv3d_dw", "convt_bwd"])
+@pytest.mark.parametrize(
+    "op",
+    ["attention", "conv3d", "convt", "conv3d_dw", "convt_bwd", "window_block", "window_mlp",
+     "window_attention"],
+)
 def test_wrappers_refuse_devices_without_a_kernel(op):
     """A tensor on neither the CPU nor a GPU raises: there is no fallback to
     the plain version outside the CPU."""
     x = torch.empty(1, 2, 8, 4, 4, device="meta")
+    w = torch.empty(8, 8, device="meta")
+    v = torch.empty(8, device="meta")
     calls = {
+        "window_block": lambda: window_block_attention(x[0], v, v, w, v, w, v, 1),
+        "window_mlp": lambda: window_block_mlp(x[0], v, v, w, v, w, v),
+        "window_attention": lambda: window_attention(x[0], x[0], x[0], 1),
         "attention": lambda: flash_attention(x[0, 0], x[0, 0], x[0, 0], torch.empty(3, 4, device="meta"), 1),
         "conv3d": lambda: conv3d_dm(x, torch.empty(3, 3, 3, 8, 8, device="meta")),
         "convt": lambda: convt2x_dm(x, torch.empty(1, 2, 2, 8, 8, device="meta")),
@@ -149,3 +171,12 @@ def test_cli_train_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["train", str(tmp_path), str(tmp_path), "mito", "--labels", "mito",
               "--result-folder", str(tmp_path / "out")])
+
+
+def test_cli_features_use_sam_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """``cryovit-torch features --use-sam`` without ``--device`` on a machine
+    without a GPU raises instead of extracting on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    write_mrc(tmp_path / "t.mrc", np.zeros((2, 8, 8), np.uint8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["features", str(tmp_path), str(tmp_path / "out"), "--use-sam", "--random-init"])
