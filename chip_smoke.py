@@ -10,14 +10,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    (one nvcc per source, started together).
 3. kernels — each kernel against its plain PyTorch version, in bf16, at the
    shapes its main paths give it: the forward kernels at the serving path's
-   shapes for a 64×512×512 tomogram; at the training crop's (128×512×512
-   labels) the backward kernels and conv3d_dm's twelve calls of a train
-   step (forward, and input gradient with flipped, in/out-swapped taps); the
-   three Hiera kernels at Hiera-L's stage-3 shapes for a batch of 64 slices
-   at 512². Kernel, plain and library times from CUDA events, and the least
-   time the card could take (``bound_ms``).
+   shapes for a 64×512×512 tomogram (the head-major attention with q/k/v as
+   permuted views of one projection and contiguous, its (B, N, H, D) twin,
+   and the fused residual + LayerNorm for three dtype/LayerScale cases, at
+   ViT-g's 64×1029 tokens); at the training crop's (128×512×512 labels) the
+   backward kernels and conv3d_dm's twelve calls of a train step (forward,
+   and input gradient with flipped, in/out-swapped taps); the three Hiera
+   kernels at Hiera-L's stage-3 shapes for a batch of 64 slices at 512².
+   Kernel, plain and library times from CUDA events, and the least time the
+   card could take (``bound_ms``).
 4. reference — the serving path on the GPU (bf16, kernels) against the same
-   path on the CPU (f32, plain versions) on a small input.
+   path on the CPU (f32, plain versions) on a small input, once for each
+   DINOv2 configuration: the default, ``pair_heads=False`` and
+   ``fused_ln=True``.
 5. train reference — one train step of the full-width decoder on a small
    input, GPU bf16 through the kernels against CPU f32 through the plain
    versions: the probabilities, the Dice loss and every parameter's
@@ -29,7 +34,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
    the full-width DINOv2 ViT-g/14 with seeded random weights and a seeded
    CryoVIT decoder saved as a ``.model``; fused inference (raw tomogram →
-   masks) and feature extraction on it.
+   masks) and feature extraction on it. Then the DINOv2 variants on the same
+   weights (shared, not copied) and tomogram: extraction with
+   ``pair_heads=False`` (exactly 40 ``flash_attention_bhnd`` launches) and
+   with ``fused_ln=True`` (exactly 40 ``flash_attention`` and 80
+   ``residual_layernorm``): features against the default path's, slices/s
+   beside the default's, peak memory, and a profile of one 64-slice batch of
+   each configuration.
 8. training main path — a synthetic 128×512×512 tomogram of bright blobs on
    noise, its ViT-g/14 features and blob labels; ``Trainer.fit`` of the
    full-width decoder in bf16 for 8 epochs with SWA and validation through
@@ -94,13 +105,18 @@ KERNELS = {
                          "cryovit_tpu/ops/window_attention.py:226"),
     "window_attention": ("cryovit_tpu_torch/csrc/window_attention.cu",
                          "cryovit_tpu/ops/window_attention.py:311"),
+    "flash_attention_bhnd": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+                             "cryovit_tpu/ops/flash_attention.py:53"),
+    "flash_attention_bnhd": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+                             "cryovit_tpu/ops/flash_attention.py:53"),
+    "residual_layernorm": ("cryovit_tpu_torch/csrc/fused_norm.cu",
+                           "cryovit_tpu/ops/fused_norm.py:69"),
 }
 DINO_KERNELS = ("flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd")
 # one train step of the decoder: 6 tail convs forward and 6 input gradients
 # through conv3d_dm, 6 weight gradients, 2 ConvTransposes each way
-TRAIN_STEP_LAUNCHES = {"flash_attention": 0, "conv3d_dm": 12, "convt2x_dm": 2,
-                       "conv3d_dm_dw": 6, "convt2x_dm_bwd": 2, "window_block_attention": 0,
-                       "window_block_mlp": 0, "window_attention": 0}
+TRAIN_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 12, "convt2x_dm": 2,
+                       "conv3d_dm_dw": 6, "convt2x_dm_bwd": 2}
 # Hiera-L's stage 3 for a batch of 64 slices at 512²: 256 windows of 16×16
 # tokens, 576 channels in 8 heads of 72, MLP 2304; and its global blocks,
 # 64 images of 32×32 tokens
@@ -109,6 +125,13 @@ GLOBAL_SHAPE = (64, 1024, 8, 72)  # (batch, tokens, heads, head dim)
 # per 64-slice batch at 512², from the gates over HieraConfig.large(): of the
 # 36 stage-3 blocks, block 8 pools and 23, 33, 43 are global
 SAM_BATCH_LAUNCHES = {"window_block_attention": 32, "window_block_mlp": 32, "window_attention": 3}
+# the DINOv2 variants: make_dinov2 options and their launches per block of
+# one 64-slice batch (ViT-g: 40 blocks)
+DINO_VARIANTS = {
+    "head-major (pair_heads=False)": ({"pair_heads": False}, {"flash_attention_bhnd": 1}),
+    "fused LayerNorm (fused_ln=True)": ({"fused_ln": True},
+                                        {"flash_attention": 1, "residual_layernorm": 2}),
+}
 # H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -342,10 +365,13 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
         del x, gy, x_cf, g_cf
     results["convt2x_dm_bwd"] = total
     results.update(window_kernel_rows(dev, randn))
+    results.update(dino_variant_rows(randn))
     log("kernels", "ms of the four conv kernels are sums over the shapes above (one decoder "
         f"tail pass: forward at {DEPTH} slices, backward at {TRAIN_DEPTH}; conv3d_dm's "
         f"JSON ms is the serving pass, its max|err| covers the train step's calls too); "
-        "flash_attention and the three Hiera kernels' ms are one call each (one block)")
+        "the attention kernels' and the three Hiera kernels' ms are one call each (one "
+        "block); residual_layernorm's JSON row is the (x bf16, h bf16, gamma) call, its "
+        "max|err| covers all three cases")
     torch.cuda.empty_cache()
     return results
 
@@ -421,9 +447,91 @@ def window_kernel_rows(dev: torch.device, randn) -> dict[str, dict]:
     return results
 
 
+def dino_variant_rows(randn) -> dict[str, dict]:
+    """The head-major attention, its (B, N, H, D) twin and the fused residual
+    + LayerNorm against their plain versions at ViT-g's shapes for a 64-slice
+    batch at 512² (64 × 1029 tokens, 24 heads of 64, 1536 channels)."""
+    from cryovit_tpu_torch.ops import flash_attention as fa
+    from cryovit_tpu_torch.ops import fused_norm as fn
+
+    results = {}
+    b, n, h = ATTN_SHAPE
+    d = fa.HEAD_DIM
+    c = h * d
+    flops = 4 * b * h * n * n * d
+    qkv = randn(b, n, 3, h, d)  # the head-major branch's biased projection
+    views = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    contiguous = [t.contiguous() for t in views]
+    rows = []
+    for what, (q, k, v) in (("permuted views of one (B, N, 3, H, 64) projection", views),
+                            ("contiguous (B, H, N, 64)", contiguous)):
+        row = compare(
+            "flash_attention_bhnd",
+            lambda: fa.flash_attention_bhnd(q, k, v),
+            lambda: fa.flash_attention_bhnd_reference(q, k, v),
+            lambda: F.scaled_dot_product_attention(*contiguous),
+            iters=10,
+        )
+        row = with_bound(row, 2 * 4 * b * n * c, flops)
+        log("kernels", f"flash_attention_bhnd B={b} H={h} N={n} D={d}, q/k/v {what}: max|err| "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
+            f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+            f"(scaled_dot_product_attention, (B, H, N, 64) bf16), bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']})")
+        rows.append(row)
+    # the views' row (the model's layout), with the larger error
+    results["flash_attention_bhnd"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+
+    q, k, v = (t.transpose(1, 2).contiguous() for t in contiguous)  # (B, N, H, 64)
+    row = compare(
+        "flash_attention_bnhd",
+        lambda: fa.flash_attention_bnhd(q, k, v),
+        lambda: fa.flash_attention_bnhd_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(*contiguous),
+        iters=10,
+    )
+    results["flash_attention_bnhd"] = row = with_bound(row, 2 * 4 * b * n * c, flops)
+    log("kernels", f"flash_attention_bnhd B={b} N={n} H={h} D={d}: max|err| "
+        f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
+        f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+        f"(scaled_dot_product_attention, (B, H, N, 64) bf16), bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    del qkv, views, contiguous, q, k, v
+
+    x16, h16 = randn(b, n, c), randn(b, n, c)
+    gamma, scale, bias = randn(c, scale=0.5), 1 + randn(c, scale=0.1), randn(c, scale=0.1)
+    rows = []
+    for what, x, g in (("x bf16, h bf16, gamma", x16, gamma),
+                       ("x bf16, h bf16, no gamma", x16, None),
+                       ("x f32, h bf16, gamma", x16.float(), gamma)):
+        # the unfused pair on parameters in x's dtype (F.layer_norm takes no
+        # mixed types); its x' is not rounded between the two calls
+        gx, sx, bx = (None if t is None else t.to(x.dtype) for t in (g, scale, bias))
+        row = compare(
+            "residual_layernorm",
+            lambda: fn.residual_layernorm(x, h16, g, scale, bias),
+            lambda: fn.residual_layernorm_reference(x, h16, g, scale, bias),
+            lambda: F.layer_norm(x + h16 if gx is None else torch.addcmul(x, h16, gx), (c,),
+                                 sx, bx, 1e-6),
+            iters=20, rel_tols=(2.0**-6, 2.0**-6),
+        )
+        elems = b * n * c
+        row = with_bound(row, elems * (2 * x.element_size() + 2 + 2) + 3 * 2 * c, 8 * elems)
+        log("kernels", f"residual_layernorm ({b}, {n}, {c}) {what}: max|err| "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} "
+            f"ms, library: none (no one call; the unfused addcmul + F.layer_norm pair "
+            f"{row['library_ms']:.3f} ms), bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+        rows.append(row)
+    results["residual_layernorm"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    return results
+
+
 def reference_phase(dev: torch.device) -> None:
     """Small input: GPU bf16 through the kernels vs CPU f32 through the plain
-    versions, same seeded weights; probabilities within 2e-2 (bf16)."""
+    versions, same seeded weights; probabilities within 2e-2 (bf16). Once
+    for each DINOv2 configuration (head width 64, so the default pairs
+    heads), each GPU run launching its configuration's kernels."""
+    from cryovit_tpu_torch import kernels
     from cryovit_tpu_torch.models.cryovit import make_cryovit, random_cryovit_state_dict
     from cryovit_tpu_torch.models.dinov2 import DinoV2Config, make_dinov2
     from cryovit_tpu_torch.models.fused import FusedDinoCryoVIT
@@ -437,20 +545,31 @@ def reference_phase(dev: torch.device) -> None:
     dec_sd = random_cryovit_state_dict(torch.Generator().manual_seed(3), in_channels=128)
     dec_sd["output_layer.2.weight"] *= 40.0  # spread the probabilities over (0, 1)
     stack = torch.rand(4, 128, 160, generator=torch.Generator().manual_seed(4))
-    probs = {}
-    for device, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
-        fused = FusedDinoCryoVIT(
-            make_dinov2(dino_sd, cfg, device=device, dtype=dtype),
-            make_cryovit(dec_sd, device=device, dtype=dtype),
-        )
-        probs[device.type] = fused.segment(stack).float().cpu()
-    err = (probs["cuda"] - probs["cpu"]).abs().max().item()
-    agree = ((probs["cuda"] >= 0.5) == (probs["cpu"] >= 0.5)).float().mean().item()
-    log("reference", f"4x128x160 tomogram, small backbone + full decoder: GPU bf16 vs CPU f32 "
-        f"max|dprob| {err:.3g} (tol 2e-2), masks agree on {100 * agree:.3f}% of voxels, "
-        f"prob std {probs['cpu'].std().item():.3f}")
-    if not err <= 2e-2:
-        raise AssertionError(f"GPU path disagrees with the CPU reference: {err}")
+    configs = {"default": ({}, {"flash_attention": 2}),
+               **{k: (opts, {name: 2 * n for name, n in per_block.items()})
+                  for k, (opts, per_block) in DINO_VARIANTS.items()}}
+    failed = []
+    for what, (options, launches) in configs.items():
+        probs = {}
+        for device, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+            fused = FusedDinoCryoVIT(
+                make_dinov2(dino_sd, cfg, device=device, dtype=dtype, **options),
+                make_cryovit(dec_sd, device=device, dtype=dtype),
+            )
+            kernels.reset_launch_counts()
+            probs[device.type] = fused.segment(stack).float().cpu()
+            if device.type == "cuda":
+                counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        want = {"conv3d_dm": 6, "convt2x_dm": 2, **launches}
+        err = (probs["cuda"] - probs["cpu"]).abs().max().item()
+        agree = ((probs["cuda"] >= 0.5) == (probs["cpu"] >= 0.5)).float().mean().item()
+        log("reference", f"{what}: 4x128x160 tomogram, small backbone + full decoder: GPU bf16 "
+            f"vs CPU f32 max|dprob| {err:.3g} (tol 2e-2), masks agree on {100 * agree:.3f}% of "
+            f"voxels, prob std {probs['cpu'].std().item():.3f}; GPU launches {counts}")
+        if not (err <= 2e-2 and counts == want):
+            failed.append(f"{what}: max|dprob| {err}, launches {counts} (want {want})")
+    if failed:
+        raise AssertionError(f"GPU path disagrees with the CPU reference: {failed}")
 
 
 def train_reference_phase(dev: torch.device) -> None:
@@ -713,6 +832,9 @@ def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         "every forward kernel of the path launched": all(
             counts[k] > 0 for k in ("flash_attention", "conv3d_dm", "convt2x_dm")
         ),
+        "the default DINOv2 launches no head-major attention and no residual_layernorm": all(
+            counts[k] == 0 for k in ("flash_attention_bhnd", "residual_layernorm")
+        ),
     }
     log("serve", f"probabilities mean {probs.mean():.4f} std {probs.std():.4f}, "
         f"mask fraction {masks.mean():.4f}")
@@ -728,9 +850,93 @@ def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         path, volume, feats = extracted[0]
         save_feature_hdf({"data": volume}, feats, f"{path.stem}.hdf", workdir / "features")
         log("serve", f"wrote {writer.result_paths[0].name} and features/{path.stem}.hdf")
-    del segmenter, extractor
+    del extractor
+    variant_counts = dino_variants_phase(dev, segmenter.backbone, files, feats, DEPTH / t_feat)
+    del segmenter
     torch.cuda.empty_cache()
-    return counts
+    return {k: counts[k] + variant_counts[k] for k in counts}
+
+
+# kernel-name fragments → the layer a device kernel of the DINOv2 forward
+# belongs to
+DINO_PROFILE_GROUPS = (
+    ("residual_layernorm (fused residual + LayerScale + LayerNorm)", ("residual_layernorm",)),
+    ("LayerNorm (F.layer_norm)", ("layer_norm",)),
+    ("LayerScale + residual (addcmul)", ("addcmul",)),
+    ("port attention kernel", ("flash_attention",)),
+    ("cuBLAS projections", ("xmma", "cutlass", "nvjet", "gemm", "sm90_")),
+)
+
+
+def dino_variants_phase(dev: torch.device, backbone, files, default_feats,
+                        default_rate: float) -> dict[str, int]:
+    """Extraction with each of ``DINO_VARIANTS`` on the serving phase's
+    ViT-g/14 weights (the same tensors, not copies) and tomogram: launches
+    (exact), features against the default path's, slices/s, peak memory;
+    then a profile of one 64-slice batch of the backbone in each
+    configuration, the default first. Returns the variants' launches."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.data.transforms import dino_device_preprocess
+    from cryovit_tpu_torch.models.dinov2 import make_dinov2
+    from cryovit_tpu_torch.run.dino_features import DinoExtractor, extract_features
+
+    name = torch.cuda.get_device_name(0)
+    state = backbone.state_dict()
+    depth = backbone.cfg.depth
+    batches = -(-DEPTH // SLICE_BATCH)
+    ref = default_feats.astype(np.float64).ravel()
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    models, checks = {"default": backbone}, {}
+    for what, (options, per_block) in DINO_VARIANTS.items():
+        model = make_dinov2(state, backbone.cfg, device=dev, dtype=backbone.pos_embed.dtype,
+                            **options)
+        models[what] = model
+        extractor = DinoExtractor(model, batch_size=SLICE_BATCH)
+        extractor.extract(np.zeros((8, SIDE, SIDE), np.float32))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, volume, feats = next(iter(extract_features(files, extractor)))
+        torch.cuda.synchronize()
+        t_feat = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {**dict.fromkeys(kernels.KERNELS, 0),
+                **{k: n * depth * batches for k, n in per_block.items()}}
+        got = feats.astype(np.float64).ravel()
+        cos = float(got @ ref / (np.linalg.norm(got) * np.linalg.norm(ref)))
+        rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+        log("variants", f"{what}: {DEPTH} slices in {t_feat:.3f} s = {DEPTH / t_feat:.2f} "
+            f"slices/s (default path, same run: {default_rate:.2f}), peak device memory "
+            f"{peak / 2**30:.2f} GiB ({name})")
+        log("variants", f"{what}: features {feats.shape} {feats.dtype}, finite "
+            f"{bool(np.isfinite(feats).all())}; against the default path's: cosine {cos:.6f}, "
+            f"relative L2 {rel:.4g}; launches {counts}")
+        shape = (backbone.cfg.embed_dim, DEPTH, SIDE // 16, SIDE // 16)
+        checks.update({
+            f"{what}: weights shared with the default model":
+                model.pos_embed.data_ptr() == backbone.pos_embed.data_ptr(),
+            f"{what}: features {shape} fp16 finite":
+                feats.shape == shape and feats.dtype == np.float16
+                and bool(np.isfinite(feats).all()),
+            f"{what}: cosine >= 0.999 and relative L2 <= 0.05 against the default":
+                cos >= 0.999 and rel <= 0.05,
+            f"{what}: launches {want}": counts == want,
+        })
+        total = {k: total[k] + counts[k] for k in total}
+        del extractor
+    x = dino_device_preprocess(torch.as_tensor(volume[:SLICE_BATCH]).to(dev))
+    for what, model in models.items():
+        with torch.inference_mode():
+            _profile(lambda: model(x), f"one {SLICE_BATCH}-slice ViT-g/14 batch, {what}",
+                     DINO_PROFILE_GROUPS, "other elementwise (SwiGLU, casts, copies, patch embed)",
+                     name, top=8)
+    _report_checks(checks, "DINOv2 variants")
+    del models, x
+    return total
 
 
 def _report_checks(checks: dict[str, bool], what: str) -> None:
@@ -959,7 +1165,8 @@ def _kernel_names(build_log: str):
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"((?:flash_attention|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
-                          r"|sum_partials|window_attention|ln_gemm)_kernel)(I(?:L[ib]\d+E)+E)?",
+                          r"|sum_partials|window_attention|ln_gemm|residual_layernorm)_kernel)"
+                          r"(I(?:L[ib]\d+E)+E)?",
                           line)
             args = ",".join(re.findall(r"L[ib](\d+)E", m[2])) if m and m[2] else ""
             kernel = (f"{m[1]}<{args}>" if args else m[1]) if m else line

@@ -1,14 +1,23 @@
 // Non-causal multi-head attention for DINOv2 on Hopper (sm_90a).
 //
-// Replaces: cryovit_tpu/ops/flash_attention.py:flash_attention_pairs
-//   (Pallas kernel _flash_kernel_paired, channel_major=True path).
+// Replaces two Pallas kernels of cryovit_tpu/ops/flash_attention.py:
+// - _flash_kernel_paired (flash_attention_pairs, channel_major=True), entry
+//   cryovit_flash_attention: q/k/v biases added inside, keys at or past
+//   kv_len masked, the denominator summed from the bf16 probabilities;
+// - _flash_kernel (flash_attention_bhnd on (B, H, N, D) and flash_attention
+//   on (B, N, H, D)), entry cryovit_flash_attention_strided: no bias, the
+//   denominator summed from the f32 probabilities before they are rounded
+//   to bf16 for P.V, as _flash_kernel sums them (flash_attention.py:81-84).
+// One kernel body serves both, templated on <has_bias, f32_row_sum>.
 //
 // What it computes, per (batch b, head h):
-//   out[b, i, h*64:(h+1)*64] = softmax_j(scale * (q_i + bq) . (k_j + bk)) (v_j + bv)
-// over keys j < kv_len, reading q/k/v straight from the qkv projection's
-// natural (B, N, H*64) layout (any row stride, so q/k/v may be column views
-// of one fused (B, N, 3*H*64) projection output) and writing (B, N, H*64):
-// no transposes on either side.
+//   out[b, h, i, :] = softmax_j(scale * (q_i + bq) . (k_j + bk)) (v_j + bv)
+// over keys j < kv_len. Every tensor is addressed by its own (batch, head,
+// token) strides in elements with a unit column stride, so q/k/v may be
+// column views of one fused (B, N, 3*H*64) projection output (row 1) or
+// permuted head-major views of one (B, N, 3, H, 64) output (rows 2/3), and
+// the output may be written in (B, N, H, 64) memory: no transposes on either
+// side.
 //
 // What bounds it on the H100: at ViT-g's 512^2 slices (N = 1029, d = 64) the
 // two products Q.K^T and P.V are 4*N^2*d FLOPs per (batch, head) against
@@ -26,13 +35,14 @@
 //   (the FlashAttention-2 register layout), so scores never leave the SM;
 // - an online softmax in the log2 domain: scores are multiplied by
 //   scale*log2(e) and exponentiated with exp2f, with the row-max shift kept;
-// - the q/k/v biases are added while the tiles are staged in shared memory
-//   (rounded to bf16, as the TPU kernel adds them in bf16); keys at or past
-//   kv_len are masked to -inf after the bias, and their V rows are zeroed,
-//   so the ragged tail needs no padding by the caller;
-// - the denominator is the row sum of the bf16-rounded probabilities, the
-//   same values the P.V product consumes (the TPU kernel gets it from a
-//   ones column appended to V).
+// - with has_bias, the q/k/v biases are added while the tiles are staged in
+//   shared memory (rounded to bf16, as the TPU kernel adds them in bf16);
+//   keys at or past kv_len are masked to -inf after the bias, and their V
+//   rows are zeroed, so the ragged tail needs no padding by the caller;
+// - the probabilities are rounded to bf16 once for P.V; the denominator is
+//   the row sum of those rounded values (row 1: the TPU kernel gets it from
+//   a ones column appended to V) or, with f32_row_sum, of the f32 values
+//   before the rounding (rows 2/3).
 // Not yet done (later work): wgmma, TMA, a multi-stage cp.async pipeline,
 // ldmatrix fragment loads.
 
@@ -47,6 +57,15 @@ constexpr int kBlockQ = 64;  // 4 warps x 16 query rows
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr int kPad = 8;  // bf16 elements of row padding in shared memory
+
+// Element strides of one (batch, head, token, 64) operand.
+struct Strides {
+  long long b, h, n;
+};
+
+struct AttnStrides {
+  Strides q, k, v, o;
+};
 
 union Vec8 {
   uint4 u;
@@ -77,11 +96,13 @@ __device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
 }
 
 // Loads 8 consecutive bf16 of one row (zeros when the row is out of range)
-// and adds 8 bias values, rounding the sum to bf16.
+// and, with kHasBias, adds 8 bias values, rounding the sum to bf16.
+template <bool kHasBias>
 __device__ __forceinline__ Vec8 load_row8(const __nv_bfloat16* src, bool valid,
                                           const __nv_bfloat16* bias) {
   Vec8 in, out;
   in.u = valid ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+  if (!kHasBias) return in;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     out.h[j] = __float2bfloat16(__bfloat162float(in.h[j]) +
@@ -90,14 +111,15 @@ __device__ __forceinline__ Vec8 load_row8(const __nv_bfloat16* src, bool valid,
   return out;
 }
 
+// bias: (3, heads*64) bf16 rows q, k, v; read only with kHasBias.
+template <bool kHasBias, bool kF32RowSum>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            const __nv_bfloat16* __restrict__ bias,
                            __nv_bfloat16* __restrict__ out, int seq, int heads,
-                           long long row_stride, long long batch_stride,
-                           int kv_len, float scale_log2) {
+                           AttnStrides st, int kv_len, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 sK[kBlockK][kHeadDim + kPad];
   __shared__ __align__(16) __nv_bfloat16 sVt[kHeadDim][kBlockK + kPad];
@@ -112,10 +134,9 @@ __global__ void __launch_bounds__(kThreads)
   const int t = lane & 3;   // thread in group
   const int channels = heads * kHeadDim;
 
-  const long long in_base = (long long)b * batch_stride + head * kHeadDim;
-  const __nv_bfloat16* qh = q + in_base;
-  const __nv_bfloat16* kh = k + in_base;
-  const __nv_bfloat16* vh = v + in_base;
+  const __nv_bfloat16* qh = q + b * st.q.b + head * st.q.h;
+  const __nv_bfloat16* kh = k + b * st.k.b + head * st.k.h;
+  const __nv_bfloat16* vh = v + b * st.v.b + head * st.v.h;
   const __nv_bfloat16* bq = bias + head * kHeadDim;
   const __nv_bfloat16* bk = bias + channels + head * kHeadDim;
   const __nv_bfloat16* bv = bias + 2 * channels + head * kHeadDim;
@@ -124,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = tid; c < kBlockQ * kHeadDim / 8; c += kThreads) {
     const int r = c >> 3, col = (c & 7) * 8;
     const int row = q0 + r;
-    Vec8 val = load_row8(qh + row * row_stride + col, row < seq, bq + col);
+    Vec8 val = load_row8<kHasBias>(qh + row * st.q.n + col, row < seq, bq + col);
     *reinterpret_cast<uint4*>(&sQ[r][col]) = val.u;
   }
   __syncthreads();
@@ -156,9 +177,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = c >> 3, col = (c & 7) * 8;
       const int key = key0 + r;
       const bool valid = key < kv_len;
-      Vec8 kv = load_row8(kh + key * row_stride + col, valid, bk + col);
+      Vec8 kv = load_row8<kHasBias>(kh + key * st.k.n + col, valid, bk + col);
       *reinterpret_cast<uint4*>(&sK[r][col]) = kv.u;
-      Vec8 vv = load_row8(vh + key * row_stride + col, valid, bv + col);
+      Vec8 vv = load_row8<kHasBias>(vh + key * st.v.n + col, valid, bv + col);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         sVt[col + j][r] = valid ? vv.h[j] : __float2bfloat16(0.f);
@@ -209,15 +230,16 @@ __global__ void __launch_bounds__(kThreads)
       o[dt][3] *= corr[1];
     }
 
-    // P = exp2(S - m), rounded to bf16 once: the same values feed the row
-    // sum and the P.V product.
+    // P = exp2(S - m), rounded to bf16 once for the P.V product; the row
+    // sum adds the rounded values or, with kF32RowSum, the f32 ones.
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float p = round_bf16(exp2f(s[nt][i] - m_run[i >> 1]));
+        const float e = exp2f(s[nt][i] - m_run[i >> 1]);
+        const float p = round_bf16(e);
         s[nt][i] = p;
-        l_run[i >> 1] += p;
+        l_run[i >> 1] += kF32RowSum ? e : p;
       }
     }
 
@@ -248,38 +270,65 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int row0 = q0 + wr + g;
   const int row1 = row0 + 8;
-  __nv_bfloat16* ob = out + (long long)b * seq * channels + head * kHeadDim;
+  __nv_bfloat16* ob = out + b * st.o.b + head * st.o.h;
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (row0 < seq) {
-      *reinterpret_cast<uint32_t*>(ob + (long long)row0 * channels + col) =
+      *reinterpret_cast<uint32_t*>(ob + row0 * st.o.n + col) =
           pack_bf16(o[dt][0] * inv[0], o[dt][1] * inv[0]);
     }
     if (row1 < seq) {
-      *reinterpret_cast<uint32_t*>(ob + (long long)row1 * channels + col) =
+      *reinterpret_cast<uint32_t*>(ob + row1 * st.o.n + col) =
           pack_bf16(o[dt][2] * inv[1], o[dt][3] * inv[1]);
     }
   }
 }
 
+template <bool kHasBias, bool kF32RowSum>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           void* out, int batch, int seq, int heads, const AttnStrides& st,
+           int kv_len, float scale_log2, void* stream) {
+  dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
+  flash_attention_kernel<kHasBias, kF32RowSum>
+      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, (const __nv_bfloat16*)bias,
+          (__nv_bfloat16*)out, seq, heads, st, kv_len, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v: (batch, seq, heads*64) bf16 with unit column stride and the given
-// row and batch strides (in elements); bias: (3, heads*64) bf16 (q, k, v);
-// out: contiguous (batch, seq, heads*64) bf16. Keys >= kv_len are excluded.
-// scale_log2 = softmax scale * log2(e). Returns cudaGetLastError().
+// Row 1. q, k, v: (batch, seq, heads*64) bf16 with unit column stride and
+// the given row and batch strides (in elements); bias: (3, heads*64) bf16
+// (q, k, v); out: contiguous (batch, seq, heads*64) bf16. Keys >= kv_len are
+// excluded. scale_log2 = softmax scale * log2(e). Returns cudaGetLastError().
 extern "C" int cryovit_flash_attention(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* out, int batch, int seq, int heads,
                                        long long row_stride,
                                        long long batch_stride, int kv_len,
                                        float scale_log2, void* stream) {
-  dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_attention_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)bias,
-      (__nv_bfloat16*)out, seq, heads, row_stride, batch_stride, kv_len,
-      scale_log2);
-  return (int)cudaGetLastError();
+  const long long channels = (long long)heads * kHeadDim;
+  const Strides in{batch_stride, kHeadDim, row_stride};
+  const AttnStrides st{in, in, in, Strides{seq * channels, kHeadDim, channels}};
+  return launch<true, false>(q, k, v, bias, out, batch, seq, heads, st, kv_len,
+                             scale_log2, stream);
+}
+
+// Rows 2/3. q, k, v, out: (batch, heads, seq, 64) bf16 operands with unit
+// column stride; strides holds, in elements, the (batch, head, token) strides
+// of q, k, v and out in that order (12 values). No bias, no masking (every
+// key is attended). Returns cudaGetLastError().
+extern "C" int cryovit_flash_attention_strided(const void* q, const void* k,
+                                               const void* v, void* out,
+                                               int batch, int seq, int heads,
+                                               const long long* strides,
+                                               float scale_log2, void* stream) {
+  const long long* s = strides;
+  const AttnStrides st{Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]},
+                       Strides{s[6], s[7], s[8]}, Strides{s[9], s[10], s[11]}};
+  return launch<false, true>(q, k, v, nullptr, out, batch, seq, heads, st, seq,
+                             scale_log2, stream);
 }

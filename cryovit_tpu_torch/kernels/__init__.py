@@ -46,6 +46,7 @@ NVCC_FLAGS = [
 KERNELS = (  # launch-counter names
     "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
     "window_block_attention", "window_block_mlp", "window_attention",
+    "flash_attention_bhnd", "flash_attention_bnhd", "residual_layernorm",
 )
 
 _P = ctypes.c_void_p
@@ -55,10 +56,15 @@ _LL = ctypes.c_longlong
 _ARGTYPES = {
     # q, k, v, bias, out, batch, seq, heads, row_stride, batch_stride,
     # kv_len, scale_log2, stream
-    "cryovit_flash_attention": [
-        _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
-        _I, ctypes.c_float, _P,
+    "cryovit_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _F, _P],
+    # q, k, v, out, batch, seq, heads, strides (12: (batch, head, token) of
+    # q, k, v, out), scale_log2, stream
+    "cryovit_flash_attention_strided": [
+        _P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(_LL), _F, _P,
     ],
+    # x, h, gamma (or null), scale, bias, x_out, y_out, rows, channels, x_f32,
+    # h_f32, params_f32, eps, stream
+    "cryovit_residual_layernorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w, y, batch, depth, ci, co, height, width, dilation, stream
     "cryovit_conv3d_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, batch, depth, ci, co, height, width, stream

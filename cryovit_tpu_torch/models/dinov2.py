@@ -11,11 +11,20 @@ Port of ``cryovit_tpu/models/dinov2.py``. The giant variant: patch 14, embed
 - The patch embed is an unfold + matmul.
 - Position embeddings are interpolated in torch's scale-factor form
   (``scale = (g + 0.1) / M``), as the hub model does.
-- Attention reads q, k and v as column views of one qkv projection and
-  applies their biases inside the kernel (``ops/flash_attention.py``).
+- Attention, with heads that pair (``pair_heads``, the default for head
+  width 64 and an even head count), reads q, k and v as column views of one
+  qkv projection and applies their biases inside the kernel
+  (``ops/flash_attention.py:flash_attention``). Otherwise it takes the
+  head-major branch: the biased projection viewed as ``(B, H, N, D)``
+  planes, ``flash_attention_bhnd``, and the output projection reading the
+  kernel's ``(B, N, H, D)`` output as ``(B, N, C)``.
 - LayerNorm statistics are f32 (``F.layer_norm``; the JAX package uses the
   "fast" variance E[x²] − E[x]², which differs at the 1e-5 level in f32);
-  the residual stream is in the compute dtype, the final norm in f32.
+  the residual stream is in ``residual_dtype`` (default: the compute
+  dtype), the final norm in f32.
+- ``fused_ln`` gives the blocks the JAX package's deferred-residual carry
+  ``(x, pending)``: every residual add + LayerScale + LayerNorm pair is one
+  ``ops/fused_norm.py:residual_layernorm`` call, two per block.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cryovit_tpu_torch.ops.flash_attention import flash_attention
+from cryovit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bhnd
+from cryovit_tpu_torch.ops.fused_norm import residual_layernorm
 from cryovit_tpu_torch.ops.resize import _cubic_kernel
 
 __all__ = ["DinoV2Config", "DinoV2", "interpolate_pos_embed", "make_dinov2"]
@@ -117,21 +127,30 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, pair_heads: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.pair_heads = pair_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[-1]
+        b, n, c = x.shape
+        d = c // self.num_heads
+        if not self.pair_heads:
+            # head-major (JAX dinov2.py:262-275): the bias is added by the
+            # projection, q/k/v are permuted (B, H, N, D) views of its
+            # (B, N, 3, H, D) output, and the kernel's output, (B, N, H, D)
+            # in memory, is read by the output projection as (B, N, C)
+            qkv = F.linear(x, self.qkv.weight, self.qkv.bias).view(b, n, 3, self.num_heads, d)
+            out = flash_attention_bhnd(*(qkv[:, :, i].transpose(1, 2) for i in range(3)))
+            return F.linear(out.transpose(1, 2).reshape(b, n, c), self.proj.weight, self.proj.bias)
         # one (B·N, C)·(C, 3C) product in its natural layout; q, k and v are
         # column views of it, and their biases are added inside the kernel
         qkv = F.linear(x, self.qkv.weight)
         out = flash_attention(
             qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :],
-            self.qkv.bias.view(3, c), self.num_heads,
-            scale=(c // self.num_heads) ** -0.5,
+            self.qkv.bias.view(3, c), self.num_heads, scale=d**-0.5,
         )
         return F.linear(out, self.proj.weight, self.proj.bias)
 
@@ -158,25 +177,55 @@ class LayerScale(nn.Module):
         self.gamma = nn.Parameter(torch.empty(dim))
 
 
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``norm`` over ``x`` in x's dtype (f32 statistics), output in ``dtype``."""
+    w, b = norm.weight.to(x.dtype), norm.bias.to(x.dtype)
+    return F.layer_norm(x, norm.normalized_shape, w, b, norm.eps).to(dtype)
+
+
 class Block(nn.Module):
     """Pre-LN block with LayerScale: ``x + ls1·attn(LN1 x)``, then
-    ``x + ls2·mlp(LN2 x)`` (torch hub ``dinov2/layers/block.py``)."""
+    ``x + ls2·mlp(LN2 x)`` (torch hub ``dinov2/layers/block.py``). The
+    residual stream ``x`` may be in another dtype than the parameters (the
+    compute dtype)."""
 
-    def __init__(self, cfg: DinoV2Config):
+    def __init__(self, cfg: DinoV2Config, pair_heads: bool = True):
         super().__init__()
         dim = cfg.embed_dim
         self.norm1 = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
-        self.attn = Attention(dim, cfg.num_heads)
+        self.attn = Attention(dim, cfg.num_heads, pair_heads)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
         self.mlp = SwiGLUFFN(dim, cfg.ffn_hidden)
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # LayerNorm in one kernel (f32 statistics inside, output in x's
-        # dtype); LayerScale and the residual add in one addcmul
-        x = torch.addcmul(x, self.attn(self.norm1(x)), self.ls1.gamma)
-        return torch.addcmul(x, self.mlp(self.norm2(x)), self.ls2.gamma)
+        # LayerNorm in one kernel (f32 statistics inside, output in the
+        # compute dtype); LayerScale and the residual add in one addcmul in
+        # the stream's dtype
+        dtype = self.ls1.gamma.dtype
+        h = self.attn(_layer_norm(self.norm1, x, dtype))
+        x = torch.addcmul(x, h.to(x.dtype), self.ls1.gamma.to(x.dtype))
+        h = self.mlp(_layer_norm(self.norm2, x, dtype))
+        return torch.addcmul(x, h.to(x.dtype), self.ls2.gamma.to(x.dtype))
+
+    def forward_fused(
+        self, x: torch.Tensor, pending: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The JAX package's deferred-residual carry (``dinov2.py:383-416``):
+        ``pending``, the previous block's LayerScale-scaled MLP output, is
+        added here, fused with this block's first LayerNorm; the second
+        LayerNorm is fused with the attention branch's LayerScale and add;
+        the MLP branch is returned as the next ``pending``, rounded to the
+        compute dtype before the cast to the stream's."""
+        dtype = self.ls1.gamma.dtype
+        eps = self.norm1.eps
+        x, h = residual_layernorm(x, pending, None, self.norm1.weight, self.norm1.bias, eps, dtype)
+        h = self.attn(h)
+        x, h = residual_layernorm(x, h, self.ls1.gamma, self.norm2.weight, self.norm2.bias, eps,
+                                  dtype)
+        h = self.mlp(h)
+        return x, (h * self.ls2.gamma.to(h.dtype)).to(x.dtype)
 
 
 class DinoV2(nn.Module):
@@ -184,18 +233,28 @@ class DinoV2(nn.Module):
 
     Input: ``(B, H, W)`` preprocessed slices (already 14/16-resized; H, W
     multiples of 14). Output: ``(B, gh·gw, embed_dim)`` f32 patch tokens.
-    Computes in the dtype of its parameters.
+    Computes in the dtype of its parameters; the options are those of
+    :func:`make_dinov2`, resolved.
     """
 
-    def __init__(self, cfg: DinoV2Config | None = None):
+    def __init__(
+        self,
+        cfg: DinoV2Config | None = None,
+        *,
+        pair_heads: bool = True,
+        fused_ln: bool = False,
+        residual_dtype: torch.dtype | None = None,
+    ):
         super().__init__()
         self.cfg = cfg = cfg or DinoV2Config.giant()
+        self.fused_ln = fused_ln
+        self.residual_dtype = residual_dtype  # None: the compute dtype
         e = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.empty(1, 1, e))
         self.register_tokens = nn.Parameter(torch.empty(1, cfg.num_registers, e))
         self.pos_embed = nn.Parameter(torch.empty(1, 1 + cfg.pos_grid**2, e))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(Block(cfg, pair_heads) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -209,8 +268,15 @@ class DinoV2(nn.Module):
         tokens = torch.cat([cls, tokens], dim=1) + pos.to(dtype)
         regs = self.register_tokens.expand(b, -1, -1)
         tokens = torch.cat([tokens[:, :1], regs, tokens[:, 1:]], dim=1)
-        for blk in self.blocks:
-            tokens = blk(tokens)
+        tokens = tokens.to(self.residual_dtype or dtype)
+        if self.fused_ln:
+            pending = torch.zeros_like(tokens)
+            for blk in self.blocks:
+                tokens, pending = blk.forward_fused(tokens, pending)
+            tokens = tokens + pending  # flush the last block's deferred residual
+        else:
+            for blk in self.blocks:
+                tokens = blk(tokens)
         norm = self.norm
         tokens = F.layer_norm(
             tokens.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(), norm.eps
@@ -223,15 +289,33 @@ def make_dinov2(
     cfg: DinoV2Config | None = None,
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.bfloat16,
+    *,
+    pair_heads: bool | None = None,
+    fused_ln: bool | None = None,
+    residual_dtype: torch.dtype | None = None,
 ) -> DinoV2:
     """Build the extractor from a port state dict (torch hub names, patch
     embed folded to one channel), on ``device`` in ``dtype``, for inference.
 
+    The options and their defaults are the JAX ``make_dinov2``'s:
+
+    - ``pair_heads`` (default: head width 64 and an even head count, true
+      for ViT-g): the channel-major attention kernel with in-kernel biases;
+      false takes the head-major branch and ``flash_attention_bhnd``;
+    - ``fused_ln`` (default false): the deferred-residual blocks with two
+      ``residual_layernorm`` calls each;
+    - ``residual_dtype`` (default: ``dtype``): the residual stream's dtype.
+
     The module is built on the meta device and takes the state dict's
     tensors as its parameters, so the giant model is never initialised
-    twice or copied through host memory."""
+    twice or copied through host memory; tensors already on ``device`` in
+    ``dtype`` are shared, not copied."""
+    cfg = cfg or DinoV2Config.giant()
+    if pair_heads is None:
+        pair_heads = cfg.embed_dim // cfg.num_heads == 64 and cfg.num_heads % 2 == 0
     with torch.device("meta"):
-        model = DinoV2(cfg)
+        model = DinoV2(cfg, pair_heads=pair_heads, fused_ln=bool(fused_ln),
+                       residual_dtype=residual_dtype)
     sd = {k: torch.as_tensor(v).to(device=device, dtype=dtype) for k, v in state_dict.items()}
     model.load_state_dict(sd, strict=True, assign=True)
     return model.eval().requires_grad_(False)

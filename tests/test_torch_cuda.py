@@ -16,6 +16,7 @@ from cryovit_tpu_torch import kernels
 from cryovit_tpu_torch.ops import conv3d_dm as cd
 from cryovit_tpu_torch.ops import convt_dm as ct
 from cryovit_tpu_torch.ops import flash_attention as fa
+from cryovit_tpu_torch.ops import fused_norm as fn
 from cryovit_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.cuda
@@ -49,6 +50,86 @@ def test_attention_kernel_matches_plain(cuda, b, n, heads, true_len):
     bias = _randn(cuda, 3, c, seed=1, scale=0.5)
     _close(fa.flash_attention(q, k, v, bias, heads, true_len),
            fa.flash_attention_reference(q, k, v, bias, heads, true_len))
+
+
+@pytest.mark.parametrize("b,n,heads", [(2, 37, 2), (3, 130, 4), (2, 1029, 24)])
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+def test_attention_bhnd_kernel_matches_plain(cuda, b, n, heads, layout):
+    """Head-major q, k, v as permuted (B, H, N, 64) views of one
+    (B, N, 3, H, 64) projection, as the model passes them, or contiguous;
+    ragged N. The output is a (B, H, N, 64) view of (B, N, H, 64) memory."""
+    qkv = _randn(cuda, b, n, 3, heads, fa.HEAD_DIM)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    got = fa.flash_attention_bhnd(q, k, v)
+    assert got.shape == (b, heads, n, fa.HEAD_DIM) and got.transpose(1, 2).is_contiguous()
+    _close(got, fa.flash_attention_bhnd_reference(q, k, v))
+
+
+def test_attention_bnhd_kernel_matches_plain(cuda):
+    """(B, N, H, D) inputs, f32 cast to bf16 as the JAX flash_attention does."""
+    q, k, v = (_randn(cuda, 2, 333, 3, fa.HEAD_DIM, seed=s).float() for s in range(3))
+    got = fa.flash_attention_bnhd(q, k, v)
+    assert got.shape == (2, 333, 3, fa.HEAD_DIM) and got.is_contiguous()
+    assert got.dtype == torch.bfloat16
+    _close(got, fa.flash_attention_bnhd_reference(q, k, v))
+
+
+def test_head_major_output_feeds_the_projection_without_a_copy(cuda, monkeypatch):
+    """The head-major Attention's path: the kernel's output, viewed back as
+    (B, N, C), shares its memory; the block's output matches the block run
+    on the plain version."""
+    from cryovit_tpu_torch.models import dinov2 as dm
+
+    b, n, heads = 2, 77, 4
+    c = heads * fa.HEAD_DIM
+    qkv = _randn(cuda, b, n, 3, heads, fa.HEAD_DIM)
+    out = fa.flash_attention_bhnd(*(qkv[:, :, i].transpose(1, 2) for i in range(3)))
+    flat = out.transpose(1, 2).reshape(b, n, c)
+    assert flat.data_ptr() == out.data_ptr() and flat.is_contiguous()
+    attn = dm.Attention(c, heads, pair_heads=False).to(cuda, torch.bfloat16)
+    x = _randn(cuda, b, n, c, seed=1)
+    got = attn(x)
+    monkeypatch.setattr(dm, "flash_attention_bhnd", fa.flash_attention_bhnd_reference)
+    _close(got, attn(x))
+
+
+@pytest.mark.parametrize("x_dtype,h_dtype,with_gamma,shape", [
+    (torch.bfloat16, torch.bfloat16, True, (2, 1029, 1536)),
+    (torch.bfloat16, torch.bfloat16, False, (3, 37, 128)),
+    (torch.float32, torch.bfloat16, True, (2, 1029, 1536)),
+    (torch.float32, torch.float32, False, (1, 25, 1536)),
+    (torch.bfloat16, torch.float32, True, (5, 11, 200)),
+])
+def test_residual_layernorm_kernel_matches_plain(cuda, x_dtype, h_dtype, with_gamma, shape):
+    """Every (x, h) dtype pair, with and without LayerScale, ragged row
+    counts and C = 200 (not a multiple of 256); bf16 parameters as the model
+    holds them. x' to its dtype's rounding (f32: 1e-5 of max|x'|), y within
+    2^-6·max|plain|."""
+    c = shape[-1]
+    x = _randn(cuda, *shape).to(x_dtype)
+    h = _randn(cuda, *shape, seed=1).to(h_dtype)
+    gamma = _randn(cuda, c, seed=2, scale=0.5) if with_gamma else None
+    scale, bias = 1 + _randn(cuda, c, seed=3, scale=0.1), _randn(cuda, c, seed=4, scale=0.1)
+    got_x, got_y = fn.residual_layernorm(x, h, gamma, scale, bias)
+    want_x, want_y = fn.residual_layernorm_reference(x, h, gamma, scale, bias)
+    assert got_x.dtype == x_dtype and got_y.dtype == torch.bfloat16
+    if x_dtype == torch.float32:
+        assert (got_x - want_x).abs().max().item() <= 1e-5 * want_x.abs().max().item()
+    else:
+        _close(got_x, want_x)
+    _close(got_y, want_y)
+
+
+def test_residual_layernorm_kernel_takes_f32_parameters(cuda):
+    x = _randn(cuda, 4, 50, 256)
+    params = [_randn(cuda, 256, seed=s, scale=0.3).float() for s in (1, 2, 3)]
+    params[1] += 1
+    got = fn.residual_layernorm(x, x, *params)
+    want = fn.residual_layernorm_reference(x, x, *params)
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 def _block_params(dev, c, f, c_out, seed=1):
@@ -144,10 +225,16 @@ def test_each_launch_counts_once(cuda):
     wa.window_block_attention(xw, *_block_params(cuda, 72, 216, 72), 1)
     wa.window_block_mlp(xw, *_block_params(cuda, 72, 288, 72))
     wa.window_attention(xw, xw, xw, 1)
+    qh = _randn(cuda, 1, 2, 16, fa.HEAD_DIM)
+    fa.flash_attention_bhnd(qh, qh, qh)
+    fa.flash_attention_bnhd(qh, qh, qh)
+    fa.flash_attention_bnhd(qh, qh, qh)
+    fn.residual_layernorm(xw, xw, None, *_block_params(cuda, 72, 72, 72)[:2])
     assert kernels.launch_counts() == {
         "flash_attention": 0, "conv3d_dm": 1, "convt2x_dm": 2, "conv3d_dm_dw": 1,
         "convt2x_dm_bwd": 1, "window_block_attention": 1, "window_block_mlp": 1,
-        "window_attention": 1,
+        "window_attention": 1, "flash_attention_bhnd": 1, "flash_attention_bnhd": 2,
+        "residual_layernorm": 1,
     }
 
 
@@ -245,3 +332,26 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     q = torch.zeros(1, 5, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, torch.zeros(3, 64, device=cuda, dtype=torch.bfloat16), 2)
+    qh = torch.zeros(1, 2, 5, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention_bhnd(qh.float(), qh.float(), qh.float())
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bhnd(qh[..., :32], qh[..., :32], qh[..., :32])
+    shifted = torch.zeros(qh.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(qh.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bhnd(shifted, qh, qh)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bnhd(qh[..., :32], qh[..., :32], qh[..., :32])
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention_bnhd(qh, qh, qh, dtype=torch.float32)
+    x = torch.zeros(2, 3, 128, device=cuda, dtype=torch.bfloat16)
+    ln = (torch.ones(128, device=cuda), torch.zeros(128, device=cuda))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fn.residual_layernorm(x.half(), x, None, *ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn.residual_layernorm(x.transpose(0, 1), x.transpose(0, 1), None, *ln)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fn.residual_layernorm(x[..., :100].contiguous(), x[..., :100].contiguous(), None,
+                              ln[0][:100], ln[1][:100])
+    with pytest.raises(TypeError, match="y in bf16"):
+        fn.residual_layernorm(x, x, None, *ln, y_dtype=torch.float32)

@@ -15,7 +15,12 @@ from cryovit_tpu_torch.cli.main import main
 from cryovit_tpu_torch.io import load_data, load_files_from_path, read_mrc, write_mrc
 from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
 from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
-from cryovit_tpu_torch.ops.flash_attention import flash_attention
+from cryovit_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bhnd,
+    flash_attention_bnhd,
+)
+from cryovit_tpu_torch.ops.fused_norm import residual_layernorm
 from cryovit_tpu_torch.ops.window_attention import (
     window_attention,
     window_block_attention,
@@ -78,18 +83,24 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
     assert window_block_mlp(xw, *ln, torch.ones(32, 8), torch.zeros(32), torch.ones(8, 32),
                             torch.zeros(8)).shape == (2, 16, 8)
     assert window_attention(xw, xw, xw, 2).shape == (2, 16, 8)
+    qh = torch.from_numpy(rng.standard_normal((2, 3, 9, 64)).astype(np.float32))
+    assert flash_attention_bhnd(qh, qh, qh).shape == (2, 3, 9, 64)
+    assert flash_attention_bnhd(qh, qh, qh, torch.float32).shape == (2, 3, 9, 64)
+    x_new, y = residual_layernorm(xw, xw, None, *ln)
+    assert x_new.dtype == torch.float32 and y.dtype == torch.bfloat16 and y.shape == (2, 16, 8)
     assert kernels._lib is None
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
     assert set(kernels.KERNELS) == {
         "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
         "window_block_attention", "window_block_mlp", "window_attention",
+        "flash_attention_bhnd", "flash_attention_bnhd", "residual_layernorm",
     }
 
 
 @pytest.mark.parametrize(
     "op",
     ["attention", "conv3d", "convt", "conv3d_dw", "convt_bwd", "window_block", "window_mlp",
-     "window_attention"],
+     "window_attention", "attention_bhnd", "attention_bnhd", "residual_layernorm"],
 )
 def test_wrappers_refuse_devices_without_a_kernel(op):
     """A tensor on neither the CPU nor a GPU raises: there is no fallback to
@@ -102,6 +113,9 @@ def test_wrappers_refuse_devices_without_a_kernel(op):
         "window_mlp": lambda: window_block_mlp(x[0], v, v, w, v, w, v),
         "window_attention": lambda: window_attention(x[0], x[0], x[0], 1),
         "attention": lambda: flash_attention(x[0, 0], x[0, 0], x[0, 0], torch.empty(3, 4, device="meta"), 1),
+        "attention_bhnd": lambda: flash_attention_bhnd(x[0], x[0], x[0]),
+        "attention_bnhd": lambda: flash_attention_bnhd(x[0], x[0], x[0]),
+        "residual_layernorm": lambda: residual_layernorm(x, x, v, v, v),
         "conv3d": lambda: conv3d_dm(x, torch.empty(3, 3, 3, 8, 8, device="meta")),
         "convt": lambda: convt2x_dm(x, torch.empty(1, 2, 2, 8, 8, device="meta")),
         "conv3d_dw": lambda: conv3d_dm_dw(x, x),
