@@ -127,6 +127,11 @@ GLOBAL_SHAPE = (64, 1024, 8, 72)  # (batch, tokens, heads, head dim)
 SAM_BATCH_LAUNCHES = {"window_block_attention": 32, "window_block_mlp": 32, "window_attention": 3}
 # the DINOv2 variants: make_dinov2 options and their launches per block of
 # one 64-slice batch (ViT-g: 40 blocks)
+# LayerScale of the variants' agreement check: the seeded 1e-5 leaves every
+# block's update below the bf16 stream's rounding, so a wrong block would not
+# move the features; at this value the 40 blocks move them by far more than
+# the agreement limit
+AGREEMENT_LAYERSCALE = 0.2
 DINO_VARIANTS = {
     "head-major (pair_heads=False)": ({"pair_heads": False}, {"flash_attention_bhnd": 1}),
     "fused LayerNorm (fused_ln=True)": ({"fused_ln": True},
@@ -371,7 +376,7 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
         f"JSON ms is the serving pass, its max|err| covers the train step's calls too); "
         "the attention kernels' and the three Hiera kernels' ms are one call each (one "
         "block); residual_layernorm's JSON row is the (x bf16, h bf16, gamma) call, its "
-        "max|err| covers all three cases")
+        "max|err| covers all four cases")
     torch.cuda.empty_cache()
     return results
 
@@ -501,22 +506,27 @@ def dino_variant_rows(randn) -> dict[str, dict]:
     x16, h16 = randn(b, n, c), randn(b, n, c)
     gamma, scale, bias = randn(c, scale=0.5), 1 + randn(c, scale=0.1), randn(c, scale=0.1)
     rows = []
-    for what, x, g in (("x bf16, h bf16, gamma", x16, gamma),
-                       ("x bf16, h bf16, no gamma", x16, None),
-                       ("x f32, h bf16, gamma", x16.float(), gamma)):
+    # every (x, h, gamma) case of the model: the bf16 stream's two calls of a
+    # block, and with an f32 stream (residual_dtype=torch.float32) the second
+    # call (f32, bf16, gamma) and the first (f32, f32 deferred residual)
+    for what, x, hh, g in (("x bf16, h bf16, gamma", x16, h16, gamma),
+                           ("x bf16, h bf16, no gamma", x16, h16, None),
+                           ("x f32, h bf16, gamma", x16.float(), h16, gamma),
+                           ("x f32, h f32, no gamma", x16.float(), h16.float(), None)):
         # the unfused pair on parameters in x's dtype (F.layer_norm takes no
         # mixed types); its x' is not rounded between the two calls
         gx, sx, bx = (None if t is None else t.to(x.dtype) for t in (g, scale, bias))
         row = compare(
             "residual_layernorm",
-            lambda: fn.residual_layernorm(x, h16, g, scale, bias),
-            lambda: fn.residual_layernorm_reference(x, h16, g, scale, bias),
-            lambda: F.layer_norm(x + h16 if gx is None else torch.addcmul(x, h16, gx), (c,),
+            lambda: fn.residual_layernorm(x, hh, g, scale, bias),
+            lambda: fn.residual_layernorm_reference(x, hh, g, scale, bias),
+            lambda: F.layer_norm(x + hh if gx is None else torch.addcmul(x, hh, gx), (c,),
                                  sx, bx, 1e-6),
             iters=20, rel_tols=(2.0**-6, 2.0**-6),
         )
         elems = b * n * c
-        row = with_bound(row, elems * (2 * x.element_size() + 2 + 2) + 3 * 2 * c, 8 * elems)
+        row = with_bound(row, elems * (2 * x.element_size() + hh.element_size() + 2) + 3 * 2 * c,
+                         8 * elems)
         log("kernels", f"residual_layernorm ({b}, {n}, {c}) {what}: max|err| "
             f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} "
             f"ms, library: none (no one call; the unfused addcmul + F.layer_norm pair "
@@ -872,9 +882,12 @@ def dino_variants_phase(dev: torch.device, backbone, files, default_feats,
                         default_rate: float) -> dict[str, int]:
     """Extraction with each of ``DINO_VARIANTS`` on the serving phase's
     ViT-g/14 weights (the same tensors, not copies) and tomogram: launches
-    (exact), features against the default path's, slices/s, peak memory;
-    then a profile of one 64-slice batch of the backbone in each
-    configuration, the default first. Returns the variants' launches."""
+    (exact), features' layout and finiteness, slices/s, peak memory. Then
+    the agreement that can fail on a wrong block: one 64-slice batch through
+    each configuration with LayerScale raised to ``AGREEMENT_LAYERSCALE``
+    (other weights shared), each variant against the default. Last, a
+    profile of one batch of the backbone in each configuration, the default
+    first. Returns the variants' launches."""
     import numpy as np
 
     from cryovit_tpu_torch import kernels
@@ -922,13 +935,39 @@ def dino_variants_phase(dev: torch.device, backbone, files, default_feats,
             f"{what}: features {shape} fp16 finite":
                 feats.shape == shape and feats.dtype == np.float16
                 and bool(np.isfinite(feats).all()),
-            f"{what}: cosine >= 0.999 and relative L2 <= 0.05 against the default":
+            f"{what}, LayerScale 1e-5 (layout only: the blocks barely move the features): "
+            f"cosine >= 0.999 and relative L2 <= 0.05 against the default":
                 cos >= 0.999 and rel <= 0.05,
             f"{what}: launches {want}": counts == want,
         })
         total = {k: total[k] + counts[k] for k in total}
         del extractor
     x = dino_device_preprocess(torch.as_tensor(volume[:SLICE_BATCH]).to(dev))
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    scaled = {k: torch.full_like(t, AGREEMENT_LAYERSCALE) if k.endswith(".gamma") else t
+              for k, t in state.items()}
+    with torch.inference_mode():
+        outs = {what: make_dinov2(scaled, backbone.cfg, device=dev,
+                                   dtype=backbone.pos_embed.dtype, **options)(x).float()
+                 for what, (options, _) in {"default": ({}, {}), **DINO_VARIANTS}.items()}
+        ref = outs.pop("default")
+        moved = rel_l2(models["default"](x).float(), ref)
+    log("variants", f"LayerScale {AGREEMENT_LAYERSCALE}: the blocks move the default path's "
+        f"features by relative L2 {moved:.4g} from the LayerScale 1e-5 ones")
+    checks[f"LayerScale {AGREEMENT_LAYERSCALE}: the blocks move the features by relative L2 "
+           f">= 0.25, 5x the agreement limit"] = moved >= 0.25
+    for what, got in outs.items():
+        cos = F.cosine_similarity(got.flatten(), ref.flatten(), dim=0).item()
+        rel = rel_l2(got, ref)
+        log("variants", f"{what}, LayerScale {AGREEMENT_LAYERSCALE}: features "
+            f"{tuple(got.shape)} against the default path's: cosine {cos:.6f}, relative L2 "
+            f"{rel:.4g}")
+        checks[f"{what}, LayerScale {AGREEMENT_LAYERSCALE}: cosine >= 0.999 and relative L2 "
+               f"<= 0.05 against the default"] = cos >= 0.999 and rel <= 0.05
+    del outs, ref, scaled
     for what, model in models.items():
         with torch.inference_mode():
             _profile(lambda: model(x), f"one {SLICE_BATCH}-slice ViT-g/14 batch, {what}",

@@ -8,7 +8,8 @@
 //   y[r]  = (x'[r] - mean) * rsqrt(var + eps) * scale + bias
 // with mean and the centered variance taken over the f32 x' (not over the
 // stored copy), x' stored in x's dtype (bf16 or f32) and y in bf16; gamma,
-// scale and bias (bf16 or f32) are upcast to f32, as the TPU kernel does.
+// scale and bias (bf16, as the model holds them) are upcast to f32, as the
+// TPU kernel does.
 //
 // What bounds it on the H100: ~8 FLOPs per element against 8 bytes (bf16 x)
 // or 12 bytes (f32 x) per element, so it is bound by device memory: read x
@@ -21,9 +22,8 @@
 //   the mean, then the centered sum of squares);
 // - every load and store is a 16-byte vector (bf16: 8 values; f32: two
 //   vectors of 4), neighbouring lanes on neighbouring addresses;
-// - templated on the x dtype, the h dtype and the presence of gamma; the
-//   parameter dtype is a uniform run-time flag (the vectors are small and
-//   stay in cache).
+// - templated on the (x, h) dtypes the model produces -- (bf16, bf16),
+//   (f32, bf16) and (f32, f32) -- and on the presence of gamma.
 // C must be a multiple of 8 and at most 32 * 8 * kMaxChunks = 2048.
 
 #include <cuda_bf16.h>
@@ -72,16 +72,6 @@ __device__ __forceinline__ void store8(void* p, const float in[8]) {
   }
 }
 
-// 8 parameter values starting at channel c, bf16 or f32 by a uniform flag.
-__device__ __forceinline__ void load_param8(const void* p, int c, bool f32,
-                                            float out[8]) {
-  if (f32) {
-    load8<true>(static_cast<const float*>(p) + c, out);
-  } else {
-    load8<false>(static_cast<const __nv_bfloat16*>(p) + c, out);
-  }
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffff, v, off);
@@ -92,12 +82,12 @@ template <bool kXF32, bool kHF32, bool kGamma>
 __global__ void __launch_bounds__(kThreads)
     residual_layernorm_kernel(const void* __restrict__ x,
                               const void* __restrict__ h,
-                              const void* __restrict__ gamma,
-                              const void* __restrict__ scale,
-                              const void* __restrict__ bias,
+                              const __nv_bfloat16* __restrict__ gamma,
+                              const __nv_bfloat16* __restrict__ scale,
+                              const __nv_bfloat16* __restrict__ bias,
                               void* __restrict__ x_out,
                               __nv_bfloat16* __restrict__ y_out, int rows,
-                              int channels, bool params_f32, float eps) {
+                              int channels, float eps) {
   using XT = typename std::conditional<kXF32, float, __nv_bfloat16>::type;
   using HT = typename std::conditional<kHF32, float, __nv_bfloat16>::type;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -121,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
       load8<kHF32>(hr + c, hv);
       if (kGamma) {
         float g[8];
-        load_param8(gamma, c, params_f32, g);
+        load8<false>(gamma + c, g);
 #pragma unroll
         for (int j = 0; j < 8; ++j) hv[j] = __fmul_rn(hv[j], g[j]);
       }
@@ -154,8 +144,8 @@ __global__ void __launch_bounds__(kThreads)
     const int c = (lane + 32 * i) * 8;
     if (c < channels) {
       float s[8], b[8], y[8];
-      load_param8(scale, c, params_f32, s);
-      load_param8(bias, c, params_f32, b);
+      load8<false>(scale + c, s);
+      load8<false>(bias + c, b);
 #pragma unroll
       for (int j = 0; j < 8; ++j) y[j] = v[i][j] * rstd * s[j] + b[j];
       store8<false>(yo + c, y);
@@ -166,16 +156,17 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kXF32, bool kHF32>
 int launch(const void* x, const void* h, const void* gamma, const void* scale,
            const void* bias, void* x_out, void* y_out, int rows, int channels,
-           bool params_f32, float eps, cudaStream_t stream) {
+           float eps, cudaStream_t stream) {
+  using BF = const __nv_bfloat16*;
   const int blocks = (rows + kWarps - 1) / kWarps;
   if (gamma != nullptr) {
     residual_layernorm_kernel<kXF32, kHF32, true><<<blocks, kThreads, 0, stream>>>(
-        x, h, gamma, scale, bias, x_out, (__nv_bfloat16*)y_out, rows, channels,
-        params_f32, eps);
+        x, h, (BF)gamma, (BF)scale, (BF)bias, x_out, (__nv_bfloat16*)y_out, rows,
+        channels, eps);
   } else {
     residual_layernorm_kernel<kXF32, kHF32, false><<<blocks, kThreads, 0, stream>>>(
-        x, h, gamma, scale, bias, x_out, (__nv_bfloat16*)y_out, rows, channels,
-        params_f32, eps);
+        x, h, (BF)gamma, (BF)scale, (BF)bias, x_out, (__nv_bfloat16*)y_out, rows,
+        channels, eps);
   }
   return (int)cudaGetLastError();
 }
@@ -183,32 +174,28 @@ int launch(const void* x, const void* h, const void* gamma, const void* scale,
 }  // namespace
 
 // x, x_out: (rows, channels), f32 if x_f32 else bf16; h: (rows, channels),
-// f32 if h_f32 else bf16; y_out: (rows, channels) bf16; gamma (may be null),
-// scale, bias: (channels,), f32 if params_f32 else bf16. All contiguous and
-// 16-byte aligned, channels a multiple of 8 and at most 2048. Returns
+// f32 if h_f32 else bf16 (an f32 h needs an f32 x); y_out: (rows, channels)
+// bf16; gamma (may be null), scale, bias: (channels,) bf16. All contiguous
+// and 16-byte aligned, channels a multiple of 8 and at most 2048. Returns
 // cudaGetLastError().
 extern "C" int cryovit_residual_layernorm(const void* x, const void* h,
                                           const void* gamma, const void* scale,
                                           const void* bias, void* x_out,
                                           void* y_out, int rows, int channels,
-                                          int x_f32, int h_f32, int params_f32,
-                                          float eps, void* stream) {
-  if (channels % 8 != 0 || channels > 32 * 8 * kMaxChunks) {
+                                          int x_f32, int h_f32, float eps,
+                                          void* stream) {
+  if (channels % 8 != 0 || channels > 32 * 8 * kMaxChunks || (h_f32 && !x_f32)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (x_f32 && h_f32) {
+  if (h_f32) {
     return launch<true, true>(x, h, gamma, scale, bias, x_out, y_out, rows,
-                              channels, params_f32, eps, s);
+                              channels, eps, s);
   }
   if (x_f32) {
     return launch<true, false>(x, h, gamma, scale, bias, x_out, y_out, rows,
-                               channels, params_f32, eps, s);
-  }
-  if (h_f32) {
-    return launch<false, true>(x, h, gamma, scale, bias, x_out, y_out, rows,
-                               channels, params_f32, eps, s);
+                               channels, eps, s);
   }
   return launch<false, false>(x, h, gamma, scale, bias, x_out, y_out, rows,
-                              channels, params_f32, eps, s);
+                              channels, eps, s);
 }

@@ -63,8 +63,8 @@ _ARGTYPES = {
         _P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(_LL), _F, _P,
     ],
     # x, h, gamma (or null), scale, bias, x_out, y_out, rows, channels, x_f32,
-    # h_f32, params_f32, eps, stream
-    "cryovit_residual_layernorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # h_f32, eps, stream
+    "cryovit_residual_layernorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, w, y, batch, depth, ci, co, height, width, dilation, stream
     "cryovit_conv3d_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, batch, depth, ci, co, height, width, stream

@@ -27,7 +27,10 @@ from cryovit_tpu_torch import kernels
 __all__ = ["MAX_CHANNELS", "residual_layernorm", "residual_layernorm_reference"]
 
 MAX_CHANNELS = 2048  # one warp per row, 8 chunks of 8 channels per lane
-_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the (x, h) dtype pairs the model hands the kernel: bf16 stream, f32
+# stream with a bf16 branch, f32 stream with the f32 deferred residual
+_KERNEL_DTYPES = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+                  (torch.float32, torch.float32)}
 
 
 def residual_layernorm_reference(
@@ -55,11 +58,12 @@ def residual_layernorm_reference(
 def _check_cuda_args(x, h, gamma, scale, bias, y_dtype) -> None:
     c = x.shape[-1]
     params = {"scale": scale, "bias": bias} | ({} if gamma is None else {"gamma": gamma})
+    if (x.dtype, h.dtype) not in _KERNEL_DTYPES:
+        raise TypeError(f"the residual_layernorm kernel takes (x, h) in bf16 or f32, an f32 h "
+                        f"only with an f32 x; got {x.dtype}, {h.dtype}")
     for name, t in {"x": x, "h": h, **params}.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype not in _KERNEL_DTYPES:
-            raise TypeError(f"the residual_layernorm kernel takes bf16 or f32; {name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if y_dtype != torch.bfloat16:
@@ -69,9 +73,9 @@ def _check_cuda_args(x, h, gamma, scale, bias, y_dtype) -> None:
     if c % 8 or c > MAX_CHANNELS:
         raise ValueError(f"the kernel needs C a multiple of 8 up to {MAX_CHANNELS}, got {c}")
     for name, t in params.items():
-        if tuple(t.shape) != (c,) or t.dtype != scale.dtype:
-            raise ValueError(f"{name} must be a ({c},) vector of scale's dtype, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        if tuple(t.shape) != (c,) or t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be a ({c},) bf16 vector, as the model holds it; got "
+                            f"{tuple(t.shape)} {t.dtype}")
 
 
 def residual_layernorm(
@@ -91,10 +95,10 @@ def residual_layernorm(
     - ``scale``/``bias``: LayerNorm affine ``(C,)``,
     - ``y_dtype``: dtype of the normalized output.
 
-    On a CUDA device the Hopper kernel runs: x and h contiguous, each bf16 or
-    f32; gamma, scale and bias of one dtype, bf16 or f32; y in bf16; C a
-    multiple of 8 up to 2048. Anything it cannot take raises; it never falls
-    back."""
+    On a CUDA device the Hopper kernel runs: x and h contiguous, (x, h) in
+    (bf16, bf16), (f32, bf16) or (f32, f32); gamma, scale and bias bf16; y in
+    bf16; C a multiple of 8 up to 2048. Anything it cannot take raises; it
+    never falls back."""
     if x.device.type == "cpu":
         return residual_layernorm_reference(x, h, gamma, scale, bias, eps, y_dtype)
     if x.device.type != "cuda":
@@ -107,7 +111,7 @@ def residual_layernorm(
     rc = kernels.load_library().cryovit_residual_layernorm(
         x.data_ptr(), h.data_ptr(), None if gamma is None else gamma.data_ptr(),
         scale.data_ptr(), bias.data_ptr(), x_out.data_ptr(), y.data_ptr(),
-        x.numel() // c, c, x.dtype == f32, h.dtype == f32, scale.dtype == f32, float(eps),
+        x.numel() // c, c, x.dtype == f32, h.dtype == f32, float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(rc, "residual_layernorm")

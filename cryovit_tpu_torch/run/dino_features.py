@@ -115,20 +115,13 @@ def load_extractor(
     cfg: DinoV2Config | None = None,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
-    *,
-    pair_heads: bool | None = None,
-    fused_ln: bool | None = None,
-    residual_dtype: torch.dtype | None = None,
 ) -> DinoV2:
     """The backbone, built from :func:`load_dinov2_variables`, on ``device``
     (default: the GPU if there is one) in ``dtype`` (default: bf16 on a GPU,
-    f32 on the CPU), with :func:`make_dinov2`'s options."""
+    f32 on the CPU)."""
     device = resolve_device(device)
     sd, _ = load_dinov2_variables(model_dir, random_init, cfg, device)
-    return make_dinov2(
-        sd, cfg, device=device, dtype=dtype or compute_dtype(device), pair_heads=pair_heads,
-        fused_ln=fused_ln, residual_dtype=residual_dtype,
-    )
+    return make_dinov2(sd, cfg, device=device, dtype=dtype or compute_dtype(device))
 
 
 class DinoExtractor:
