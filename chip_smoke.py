@@ -16,7 +16,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    ViT-g's 64×1029 tokens); at the training crop's (128×512×512 labels) the
    backward kernels and conv3d_dm's twelve calls of a train step (forward,
    and input gradient with flipped, in/out-swapped taps); the three Hiera
-   kernels at Hiera-L's stage-3 shapes for a batch of 64 slices at 512².
+   kernels at Hiera-L's stage-3 shapes for a batch of 64 slices at 512²;
+   the int8 attention (``flash_attention(quant=...)``, each of qk, pv,
+   qkpv) and its scale pre-pass at ViT-g's 64×1029 and 16×4101 tokens, on
+   inputs with outliers (plain random inputs cannot tell int8 from bf16),
+   held also by the RMS of each output row's relative error, whose limit
+   must fall below the readings of planted faults in the plain version.
    Kernel, plain and library times from CUDA events, and the least time the
    card could take (``bound_ms``).
 4. reference — the serving path on the GPU (bf16, kernels) against the same
@@ -40,7 +45,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    with ``fused_ln=True`` (exactly 40 ``flash_attention`` and 80
    ``residual_layernorm``): features against the default path's, slices/s
    beside the default's, peak memory, and a profile of one 64-slice batch of
-   each configuration.
+   each configuration. Last, the int8 attention's main path: the same
+   weights with LayerScale 0.2 in ``DinoV2(pair_attention_fn=partial(
+   flash_attention, quant=m))`` on 16 synthetic 1024² slices (4101 tokens),
+   the bf16 default first and then each mode: exactly 40 int8 attention
+   and 40 scale launches per mode (none under the default), finite
+   features within relative L2 0.1 of the default's (a check of finiteness
+   and layout: bf16-level differences move 40 blocks as far, so the kernel
+   rows hold the int8 arithmetic), device ms, slices/s, peak memory.
 8. training main path — a synthetic 128×512×512 tomogram of bright blobs on
    noise, its ViT-g/14 features and blob labels; ``Trainer.fit`` of the
    full-width decoder in bf16 for 8 epochs with SWA and validation through
@@ -63,6 +75,7 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -111,6 +124,10 @@ KERNELS = {
                              "cryovit_tpu/ops/flash_attention.py:53"),
     "residual_layernorm": ("cryovit_tpu_torch/csrc/fused_norm.cu",
                            "cryovit_tpu/ops/fused_norm.py:69"),
+    "flash_attention_int8": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+                             "cryovit_tpu/ops/flash_attention.py:226"),
+    "flash_attention_int8_scales": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+                                    "cryovit_tpu/ops/flash_attention.py:386"),
 }
 DINO_KERNELS = ("flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd")
 # one train step of the decoder: 6 tail convs forward and 6 input gradients
@@ -137,8 +154,26 @@ DINO_VARIANTS = {
     "fused LayerNorm (fused_ln=True)": ({"fused_ln": True},
                                         {"flash_attention": 1, "residual_layernorm": 2}),
 }
-# H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
+# the int8 internals of the pair attention (flash_attention(quant=...)):
+# the modes, and (slices per batch, tokens, heads of 64, slices per plain
+# call) at ViT-g's 512² and 1024² slices; the plain version holds
+# B·H·N² f32 scores and float64 probabilities, so it runs a few slices a call
+INT8_MODES = ("qk", "pv", "qkpv")
+INT8_ATTN_SHAPES = {"512^2": (64, 1029, 24, 16), "1024^2": (16, 4101, 24, 2)}
+INT8_SIDE, INT8_BATCH = 1024, 16  # the DINOv2 int8-attention phase's slices
+# relative L2 of the int8 modes' features from the bf16 default's at 1024²,
+# LayerScale AGREEMENT_LAYERSCALE (stated in PERF.md before the first chip
+# run); a check of finiteness and layout, not of the int8 arithmetic
+INT8_AGREEMENT = 0.1
+# The int8 kernel rows' second limit: the RMS over output rows (one head's
+# 64 values of one token) of each row's relative L2 error. On the outlier
+# inputs max|err| ≤ 2^-6·max|plain| is loose (the largest values are those
+# of the few rows that attend to the ×16 value row), so every row counts
+# alike here. Planted faults of the plain version must read above it.
+INT8_ROW_RMS = 2.0**-7
+# H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -167,25 +202,37 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def with_bound(row: dict, n_bytes: float, flops: float) -> dict:
+def with_bound(row: dict, n_bytes: float, flops: float, int8_ops: float = 0.0) -> dict:
     """``row`` with the least time the card could take for the work:
     the larger of the bytes (each input read once, each output written
-    once) over the memory rate and the operations over the bf16
-    tensor-core peak, and which of the two it is."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return dict(row, bytes=n_bytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+    once) over the memory rate and the operations' time on the tensor
+    cores (``flops`` at the bf16 peak plus ``int8_ops`` at the int8 peak),
+    and which of the two it is."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    return dict(row, bytes=n_bytes, flops=flops, int8_ops=int8_ops,
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name, kernel_fn, plain_fn, library_fn, iters, rel_tols=(2.0**-6,)):
+def row_rms(got: torch.Tensor, want: torch.Tensor, width: int) -> float:
+    """Root mean square over rows of ``width`` values of each row's
+    relative L2 error ``‖got − want‖ / ‖want‖``."""
+    got, want = (t.float().reshape(-1, width) for t in (got, want))
+    return ((got - want).norm(dim=1) / want.norm(dim=1)).square().mean().sqrt().item()
+
+
+def compare(name, kernel_fn, plain_fn, library_fn, iters, rel_tols=(2.0**-6,), row_limit=None):
     """Kernel vs plain version on the same inputs, output by output: max
     |error| within ``rel_tol``·max|plain| (2^-6, four bf16 ulps of the
-    largest value, for bf16 outputs); then kernel, plain and library ms."""
+    largest value, for bf16 outputs); with ``row_limit`` (width, limit) also
+    :func:`row_rms` of the one output within limit; then kernel, plain and
+    library ms."""
     got, want = kernel_fn(), plain_fn()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize()
-    err = 0.0
+    err, rows = 0.0, {}
     for g, w, tol in zip(got, want, rel_tols, strict=True):
         g, w = g.float(), w.float()
         e = (g - w).abs().max().item()
@@ -193,10 +240,16 @@ def compare(name, kernel_fn, plain_fn, library_fn, iters, rel_tols=(2.0**-6,)):
         if not (e <= limit and torch.isfinite(g).all()):
             raise AssertionError(f"{name}: kernel vs plain max |err| {e} > tol {limit}")
         err = max(err, e)
+        if row_limit is not None:
+            width, rms_limit = row_limit
+            rows = dict(row_rms=row_rms(g, w, width), max_abs_limit=limit)
+            if not rows["row_rms"] <= rms_limit:
+                raise AssertionError(f"{name}: kernel vs plain row RMS relative error "
+                                     f"{rows['row_rms']} > {rms_limit}")
     del got, want
     k_ms, p_ms = time_ms(kernel_fn, iters), time_ms(plain_fn, max(1, iters // 4))
     lib_ms = time_ms(library_fn, iters) if library_fn is not None else None
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms)
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **rows)
 
 
 def _accumulate(total: dict | None, row: dict) -> dict:
@@ -207,7 +260,8 @@ def _accumulate(total: dict | None, row: dict) -> dict:
         return row
     summed = {k: total[k] + row[k] for k in ("ms", "plain_ms", "library_ms")}
     summed["max_abs_err"] = max(total["max_abs_err"], row["max_abs_err"])
-    return with_bound(summed, total["bytes"] + row["bytes"], total["flops"] + row["flops"])
+    return with_bound(summed, total["bytes"] + row["bytes"], total["flops"] + row["flops"],
+                      total["int8_ops"] + row["int8_ops"])
 
 
 def kernel_phase(dev: torch.device) -> dict[str, dict]:
@@ -371,6 +425,7 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
     results["convt2x_dm_bwd"] = total
     results.update(window_kernel_rows(dev, randn))
     results.update(dino_variant_rows(randn))
+    results.update(int8_attention_rows(dev))
     log("kernels", "ms of the four conv kernels are sums over the shapes above (one decoder "
         f"tail pass: forward at {DEPTH} slices, backward at {TRAIN_DEPTH}; conv3d_dm's "
         f"JSON ms is the serving pass, its max|err| covers the train step's calls too); "
@@ -534,6 +589,208 @@ def dino_variant_rows(randn) -> dict[str, dict]:
         rows.append(row)
     results["residual_layernorm"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
     return results
+
+
+# Faults of the int8 numerics, planted in the plain version to show that
+# INT8_ROW_RMS would catch them: each rewrites the scales (sq, sk, sv) its
+# int8 attention takes, and touches the mode part named beside it.
+def _next_chunk_sq(scales):
+    sq, sk, sv = scales
+    return torch.cat([sq[..., 1:], sq[..., -1:]], dim=-1), sk, sv
+
+
+def _sv_per_head(scales):
+    sq, sk, sv = scales
+    return sq, sk, sv.amax(dim=-1, keepdim=True).expand_as(sv)
+
+
+INT8_FAULTS = {"q rows given the next chunk's scale": ("qk", _next_chunk_sq),
+               "one v scale per head, not per column": ("pv", _sv_per_head)}
+
+
+@contextlib.contextmanager
+def planted(fa, fault):
+    """``fa``'s plain int8 attention on the scales ``fault`` rewrites."""
+    real = fa.attention_int8_scales_reference
+    fa.attention_int8_scales_reference = lambda *a, **kw: fault(real(*a, **kw))
+    try:
+        yield
+    finally:
+        fa.attention_int8_scales_reference = real
+
+
+def int8_attention_rows(dev: torch.device) -> dict[str, dict]:
+    """The int8 attention (each of ``INT8_MODES``) and its scale pre-pass
+    against their plain versions at ViT-g's 512² and 1024² shapes, on
+    outlier inputs (q ×4 with rows ≡ 3 mod 64 ×16, key 7 and value row 11
+    ×16): plain random inputs cannot tell int8 from bf16. The attention is
+    held to max|err| ≤ 2^-6·max|plain| and to ``INT8_ROW_RMS``, and each of
+    ``INT8_FAULTS`` its mode touches must read above that limit. The plain
+    version runs a few slices a call (memory); the kernel takes the whole
+    batch. The JSON rows are qkpv at 1024² (the DINOv2 int8 phase's
+    shape)."""
+    from cryovit_tpu_torch.ops import flash_attention as fa
+
+    def nonempty(scales):  # a mode's unused scales are empty tensors
+        return tuple(t for t in scales if t.numel())
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    results = {}
+    for where, (b, n, h, per_call) in INT8_ATTN_SHAPES.items():
+        d = fa.HEAD_DIM
+        c = h * d
+        qkv = torch.randn(b, n, 3 * c, generator=g, device=dev)
+        qkv[..., :c] *= 4
+        qkv[:, 3::64, :c] *= 16
+        qkv[:, 7, c : 2 * c] *= 16
+        qkv[:, 11, 2 * c :] *= 16
+        qkv = qkv.to(torch.bfloat16)
+        q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
+        bias = (torch.randn(3, c, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        qh, kh, vh = ((t + bias[i]).view(b, n, h, d).transpose(1, 2).contiguous()
+                      for i, t in enumerate((q, k, v)))
+
+        def plain(fn, *args, **kw):
+            outs = [fn(q[i : i + per_call], k[i : i + per_call], v[i : i + per_call], *args,
+                       **kw) for i in range(0, b, per_call)]
+            return (torch.cat(outs) if isinstance(outs[0], torch.Tensor)
+                    else tuple(torch.cat(parts) for parts in zip(*outs)))
+
+        io_bytes = 2 * 4 * b * n * c  # q, k, v read, out written, bf16
+        products = 2 * b * h * n * n * d  # operations of one of Q·Kᵀ, P·V
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 5)
+        for quant in INT8_MODES:
+            row = compare(
+                "flash_attention_int8",
+                lambda: fa.flash_attention(q, k, v, bias, h, quant=quant),
+                lambda: plain(fa.flash_attention_reference, bias, h, quant=quant),
+                None, iters=5, row_limit=(d, INT8_ROW_RMS),
+            )
+            want = plain(fa.flash_attention_reference, bias, h, quant=quant)
+            faults = {}
+            for fault, (part, rewrite) in INT8_FAULTS.items():
+                if part in quant:
+                    with planted(fa, rewrite):
+                        faults[fault] = row_rms(
+                            plain(fa.flash_attention_reference, bias, h, quant=quant), want, d)
+            del want
+            readings = ", ".join(f"{f} {r:.4g}" for f, r in faults.items())
+            if not all(r > INT8_ROW_RMS for r in faults.values()):
+                raise AssertionError(f"flash_attention_int8 quant={quant} {where}: a planted "
+                                     f"fault reads within the row RMS limit: {readings}")
+            int8 = products * (("qk" in quant) + ("pv" in quant))
+            row = with_bound(row, io_bytes, 2 * products - int8, int8)
+            log("kernels", f"flash_attention_int8 quant={quant} {where} B={b} N={n} H={h}x{d}: "
+                f"max|err| {row['max_abs_err']:.3g} (limit {row['max_abs_limit']:.4g}), row RMS "
+                f"relative error {row['row_rms']:.4g} (limit {INT8_ROW_RMS:.4g}; planted faults "
+                f"in the plain version: {readings}), kernel {row['ms']:.3f} ms (with the scale "
+                f"pre-pass), plain {row['plain_ms']:.3f} ms ({per_call} slices a call), library: "
+                f"none (no PyTorch call computes int8 attention; scaled_dot_product_attention "
+                f"bf16 on the same shape {sdpa_ms:.3f} ms), bound {row['bound_ms']:.3f} ms "
+                f"({row['bound_by']})")
+            results[f"flash_attention_int8 {quant} {where}"] = row
+            n_out = 2 * ("qk" in quant) + ("pv" in quant)  # sq, sk / sv (the others empty)
+            row = compare(
+                "flash_attention_int8_scales",
+                lambda: nonempty(fa.attention_int8_scales(q, k, v, bias, h, quant=quant)),
+                lambda: nonempty(plain(fa.attention_int8_scales_reference, bias, h, quant=quant)),
+                None, iters=5, rel_tols=(0.0,) * n_out,
+            )
+            row = with_bound(row, 2 * b * n * c * n_out, 0.0)  # q, k / v read
+            log("kernels", f"flash_attention_int8_scales quant={quant} {where}: max|err| "
+                f"{row['max_abs_err']:.3g} (bit-exact required), kernel {row['ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, library: none, bound {row['bound_ms']:.3f} ms "
+                f"({row['bound_by']})")
+            results[f"flash_attention_int8_scales {quant} {where}"] = row
+        del qkv, q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    results["flash_attention_int8"] = results["flash_attention_int8 qkpv 1024^2"]
+    results["flash_attention_int8_scales"] = results["flash_attention_int8_scales qkpv 1024^2"]
+    for name in ("flash_attention_int8", "flash_attention_int8_scales"):
+        results[name]["max_abs_err"] = max(
+            r["max_abs_err"] for key, r in results.items() if key.startswith(name + " "))
+    return results
+
+
+def int8_attention_phase(dev: torch.device, backbone) -> dict[str, int]:
+    """The int8 attention's main path: the JAX perf lab's configuration
+    ``DinoV2(pair_attention_fn=partial(flash_attention, quant=m))`` at full
+    ViT-g width on one batch of ``INT8_BATCH`` synthetic 1024² slices (4101
+    tokens), on the serving phase's weights with LayerScale raised to
+    ``AGREEMENT_LAYERSCALE``; the bf16 default first (row 1's kernel at 4101
+    tokens), then each of ``INT8_MODES``. Per configuration: launches (exactly
+    one int8 attention and one scale pre-pass per block under a mode, none
+    under the default), finite features, cosine and relative L2 against the
+    default (at most ``INT8_AGREEMENT``), device ms, peak memory, slices/s.
+    Returns the launches of all four runs."""
+    from functools import partial
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.data.transforms import dino_device_preprocess
+    from cryovit_tpu_torch.models.dinov2 import DinoV2, assign_weights
+    from cryovit_tpu_torch.ops.flash_attention import flash_attention
+
+    name = torch.cuda.get_device_name(0)
+    cfg, dtype = backbone.cfg, backbone.pos_embed.dtype
+    state = {k: torch.full_like(t, AGREEMENT_LAYERSCALE) if k.endswith(".gamma") else t
+             for k, t in backbone.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(6)
+    slices = torch.randint(0, 256, (INT8_BATCH, INT8_SIDE, INT8_SIDE), generator=g, device=dev,
+                           dtype=torch.uint8)
+    x = dino_device_preprocess(slices)
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    checks, ref = {}, None
+    for quant in ("", *INT8_MODES):
+        with torch.device("meta"):
+            model = DinoV2(cfg, pair_attention_fn=partial(flash_attention, quant=quant)
+                           if quant else flash_attention)
+        model = assign_weights(model, state, dev, dtype)
+        what = f"quant={quant}" if quant else "bf16 default"
+        with torch.inference_mode():
+            model(x[:2])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            feats = model(x).float()
+            stop.record()
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ms = start.elapsed_time(stop)
+        peak = torch.cuda.max_memory_allocated()
+        total = {k: total[k] + counts[k] for k in total}
+        n_tok = feats.shape[1] + 1 + cfg.num_registers
+        want = ({"flash_attention_int8": cfg.depth, "flash_attention_int8_scales": cfg.depth}
+                if quant else {"flash_attention": cfg.depth})
+        want = {**dict.fromkeys(kernels.KERNELS, 0), **want}
+        finite = bool(torch.isfinite(feats).all())
+        log("int8", f"{what}: {INT8_BATCH} slices of {INT8_SIDE}^2 ({n_tok} tokens) in {ms:.3f} "
+            f"ms of device time = {INT8_BATCH / ms * 1e3:.2f} slices/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB ({name}); features {tuple(feats.shape)} finite {finite}; "
+            f"launches {counts}")
+        checks[f"{what}: launches {want}"] = counts == want
+        shape = (INT8_BATCH, (INT8_SIDE // 16) ** 2, cfg.embed_dim)
+        checks[f"{what}: features {shape} finite"] = feats.shape == shape and finite
+        with torch.inference_mode():
+            _profile(lambda: model(x), f"one {INT8_BATCH}-slice ViT-g/14 batch at {INT8_SIDE}^2, "
+                     f"{what}", INT8_PROFILE_GROUPS,
+                     "other elementwise (SwiGLU, casts, copies, patch embed)", name, top=6)
+        if ref is None:
+            ref = feats
+        else:
+            cos = F.cosine_similarity(feats.flatten(), ref.flatten(), dim=0).item()
+            rel = ((feats - ref).norm() / ref.norm()).item()
+            log("int8", f"{what}, LayerScale {AGREEMENT_LAYERSCALE}: features against the bf16 "
+                f"default's: cosine {cos:.6f}, relative L2 {rel:.4g}")
+            checks[f"{what}: relative L2 <= {INT8_AGREEMENT} against the bf16 default "
+                   "(finiteness and layout; the kernel rows hold the int8 arithmetic)"] = (
+                rel <= INT8_AGREEMENT)
+        del model, feats
+    _report_checks(checks, "DINOv2 int8 attention")
+    del ref, x, slices, state
+    torch.cuda.empty_cache()
+    return total
 
 
 def reference_phase(dev: torch.device) -> None:
@@ -862,9 +1119,10 @@ def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         log("serve", f"wrote {writer.result_paths[0].name} and features/{path.stem}.hdf")
     del extractor
     variant_counts = dino_variants_phase(dev, segmenter.backbone, files, feats, DEPTH / t_feat)
+    int8_counts = int8_attention_phase(dev, segmenter.backbone)
     del segmenter
     torch.cuda.empty_cache()
-    return {k: counts[k] + variant_counts[k] for k in counts}
+    return {k: counts[k] + variant_counts[k] + int8_counts[k] for k in counts}
 
 
 # kernel-name fragments → the layer a device kernel of the DINOv2 forward
@@ -875,6 +1133,14 @@ DINO_PROFILE_GROUPS = (
     ("LayerScale + residual (addcmul)", ("addcmul",)),
     ("port attention kernel", ("flash_attention",)),
     ("cuBLAS projections", ("xmma", "cutlass", "nvjet", "gemm", "sm90_")),
+)
+
+
+INT8_PROFILE_GROUPS = (
+    ("int8 scale pre-pass", ("attention_int8_scales",)),
+    ("port attention kernel", ("flash_attention",)),
+    *DINO_PROFILE_GROUPS[:3],
+    DINO_PROFILE_GROUPS[4],
 )
 
 
@@ -1203,7 +1469,8 @@ def _kernel_names(build_log: str):
     kernel = ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"((?:flash_attention|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
+            m = re.search(r"((?:attention_int8_scales|flash_attention"
+                          r"|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
                           r"|sum_partials|window_attention|ln_gemm|residual_layernorm)_kernel)"
                           r"(I(?:L[ib]\d+E)+E)?",
                           line)

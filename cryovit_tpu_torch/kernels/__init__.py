@@ -47,6 +47,7 @@ KERNELS = (  # launch-counter names
     "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
     "window_block_attention", "window_block_mlp", "window_attention",
     "flash_attention_bhnd", "flash_attention_bnhd", "residual_layernorm",
+    "flash_attention_int8", "flash_attention_int8_scales",
 )
 
 _P = ctypes.c_void_p
@@ -57,6 +58,16 @@ _ARGTYPES = {
     # q, k, v, bias, out, batch, seq, heads, row_stride, batch_stride,
     # kv_len, scale_log2, stream
     "cryovit_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _F, _P],
+    # q, k, v, bias, sq, sk, sv, batch, seq, heads, row_stride, batch_stride,
+    # kv_len, chunk_rows, chunks, mode, stream
+    "cryovit_attention_int8_scales": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _P,
+    ],
+    # q, k, v, bias, sq, sk, sv, out, batch, seq, heads, row_stride,
+    # batch_stride, kv_len, chunk_rows, chunks, scale_log2, mode, stream
+    "cryovit_flash_attention_int8": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _F, _I, _P,
+    ],
     # q, k, v, out, batch, seq, heads, strides (12: (batch, head, token) of
     # q, k, v, out), scale_log2, stream
     "cryovit_flash_attention_strided": [

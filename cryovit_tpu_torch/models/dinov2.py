@@ -14,7 +14,8 @@ Port of ``cryovit_tpu/models/dinov2.py``. The giant variant: patch 14, embed
 - Attention, with heads that pair (``pair_heads``, the default for head
   width 64 and an even head count), reads q, k and v as column views of one
   qkv projection and applies their biases inside the kernel
-  (``ops/flash_attention.py:flash_attention``). Otherwise it takes the
+  (``ops/flash_attention.py:flash_attention``, or the model's
+  ``pair_attention_fn``, e.g. its int8 modes). Otherwise it takes the
   head-major branch: the biased projection viewed as ``(B, H, N, D)``
   planes, ``flash_attention_bhnd``, and the output projection reading the
   kernel's ``(B, N, H, D)`` output as ``(B, N, C)``.
@@ -40,7 +41,7 @@ from cryovit_tpu_torch.ops.flash_attention import flash_attention, flash_attenti
 from cryovit_tpu_torch.ops.fused_norm import residual_layernorm
 from cryovit_tpu_torch.ops.resize import _cubic_kernel
 
-__all__ = ["DinoV2Config", "DinoV2", "interpolate_pos_embed", "make_dinov2"]
+__all__ = ["DinoV2Config", "DinoV2", "assign_weights", "interpolate_pos_embed", "make_dinov2"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,10 +128,19 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, pair_heads: bool = True):
+    """Multi-head self-attention; with ``pair_heads``, ``pair_attention_fn``
+    (default ``flash_attention``, with the signature of
+    ``ops/flash_attention.py:flash_attention``) computes it from column
+    views of the qkv projection and the (3, C) biases, as the JAX
+    ``Attention.pair_attention_fn`` does; e.g.
+    ``partial(flash_attention, quant="qkpv")`` for the int8 internals."""
+
+    def __init__(self, dim: int, num_heads: int, pair_heads: bool = True,
+                 pair_attention_fn=flash_attention):
         super().__init__()
         self.num_heads = num_heads
         self.pair_heads = pair_heads
+        self.pair_attention_fn = pair_attention_fn
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
@@ -148,7 +158,7 @@ class Attention(nn.Module):
         # one (B·N, C)·(C, 3C) product in its natural layout; q, k and v are
         # column views of it, and their biases are added inside the kernel
         qkv = F.linear(x, self.qkv.weight)
-        out = flash_attention(
+        out = self.pair_attention_fn(
             qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :],
             self.qkv.bias.view(3, c), self.num_heads, scale=d**-0.5,
         )
@@ -189,11 +199,12 @@ class Block(nn.Module):
     residual stream ``x`` may be in another dtype than the parameters (the
     compute dtype)."""
 
-    def __init__(self, cfg: DinoV2Config, pair_heads: bool = True):
+    def __init__(self, cfg: DinoV2Config, pair_heads: bool = True,
+                 pair_attention_fn=flash_attention):
         super().__init__()
         dim = cfg.embed_dim
         self.norm1 = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
-        self.attn = Attention(dim, cfg.num_heads, pair_heads)
+        self.attn = Attention(dim, cfg.num_heads, pair_heads, pair_attention_fn)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
         self.mlp = SwiGLUFFN(dim, cfg.ffn_hidden)
@@ -234,7 +245,9 @@ class DinoV2(nn.Module):
     Input: ``(B, H, W)`` preprocessed slices (already 14/16-resized; H, W
     multiples of 14). Output: ``(B, gh·gw, embed_dim)`` f32 patch tokens.
     Computes in the dtype of its parameters; the options are those of
-    :func:`make_dinov2`, resolved.
+    :func:`make_dinov2`, resolved, and ``pair_attention_fn``, the paired
+    heads' attention (:class:`Attention`), which ``make_dinov2`` leaves at
+    its default as the JAX one does.
     """
 
     def __init__(
@@ -244,6 +257,7 @@ class DinoV2(nn.Module):
         pair_heads: bool = True,
         fused_ln: bool = False,
         residual_dtype: torch.dtype | None = None,
+        pair_attention_fn=flash_attention,
     ):
         super().__init__()
         self.cfg = cfg = cfg or DinoV2Config.giant()
@@ -254,7 +268,9 @@ class DinoV2(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, e))
         self.register_tokens = nn.Parameter(torch.empty(1, cfg.num_registers, e))
         self.pos_embed = nn.Parameter(torch.empty(1, 1 + cfg.pos_grid**2, e))
-        self.blocks = nn.ModuleList(Block(cfg, pair_heads) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(
+            Block(cfg, pair_heads, pair_attention_fn) for _ in range(cfg.depth)
+        )
         self.norm = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -307,15 +323,27 @@ def make_dinov2(
     - ``residual_dtype`` (default: ``dtype``): the residual stream's dtype.
 
     The module is built on the meta device and takes the state dict's
-    tensors as its parameters, so the giant model is never initialised
-    twice or copied through host memory; tensors already on ``device`` in
-    ``dtype`` are shared, not copied."""
+    tensors as its parameters (:func:`assign_weights`), so the giant model
+    is never initialised twice or copied through host memory; tensors
+    already on ``device`` in ``dtype`` are shared, not copied."""
     cfg = cfg or DinoV2Config.giant()
     if pair_heads is None:
         pair_heads = cfg.embed_dim // cfg.num_heads == 64 and cfg.num_heads % 2 == 0
     with torch.device("meta"):
         model = DinoV2(cfg, pair_heads=pair_heads, fused_ln=bool(fused_ln),
                        residual_dtype=residual_dtype)
+    return assign_weights(model, state_dict, device, dtype)
+
+
+def assign_weights(
+    model: DinoV2,
+    state_dict: dict[str, torch.Tensor],
+    device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> DinoV2:
+    """``model`` (built on the meta device) for inference with the state
+    dict's tensors as its parameters, on ``device`` in ``dtype``: tensors
+    already there are shared, not copied."""
     sd = {k: torch.as_tensor(v).to(device=device, dtype=dtype) for k, v in state_dict.items()}
     model.load_state_dict(sd, strict=True, assign=True)
     return model.eval().requires_grad_(False)

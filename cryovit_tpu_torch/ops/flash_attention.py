@@ -21,6 +21,14 @@ Each wrapper takes its plain PyTorch version (``*_reference``) for CPU
 tensors, launches the kernel for CUDA tensors or raises, and raises on any
 other device. The TPU block sizes (``block_q``, ``block_k``) and
 ``interpret`` have no meaning here and are not arguments.
+
+:func:`flash_attention`'s ``quant`` modes (``"qk"``, ``"pv"``, ``"qkpv"``)
+are the JAX ``flash_attention_pairs(quant=...)`` int8 internals, run by the
+same kernel body with int8 products (``csrc/flash_attention.cu``, entry
+``cryovit_flash_attention_int8``) after a scale pre-pass
+(:func:`attention_int8_scales`). Their q scales are taken per
+chunk of q rows whose height is the TPU kernel's automatic chunk
+(:func:`q_chunk_rows`): part of the numerics, not a tiling choice here.
 """
 
 from __future__ import annotations
@@ -33,16 +41,103 @@ from cryovit_tpu_torch import kernels
 
 __all__ = [
     "HEAD_DIM",
+    "QUANT_MODES",
+    "attention_int8_scales",
+    "attention_int8_scales_reference",
     "flash_attention",
     "flash_attention_bhnd",
     "flash_attention_bhnd_reference",
     "flash_attention_bnhd",
     "flash_attention_bnhd_reference",
     "flash_attention_reference",
+    "q_chunk_rows",
 ]
 
 HEAD_DIM = 64  # the head width the CUDA kernel is built for (ViT-g: 24 x 64)
 _LOG2E = 1.4426950408889634
+QUANT_MODES = ("", "qk", "pv", "qkpv")
+_INV127 = 1.0 / 127.0
+# the dequantization factor of V's ones column: its scale 1·(1/127) times
+# 1/127, in f32
+_ONES_DEQUANT = float(torch.tensor(_INV127) * _INV127)
+
+
+# The TPU wrapper's automatic block choice, copied from
+# cryovit_tpu/ops/flash_attention.py (_round_up, _best_block, _pick_q_chunks,
+# _best_block_chunked, _auto_blocks): under quant it fixes the rows that
+# share one q scale and the longest sequence the int8 path takes.
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _best_block(n: int, lo: int = 256, hi: int = 1088) -> int:
+    best_waste, best = None, lo
+    for b in range(lo, hi + 1, 16):
+        waste = _round_up(n, b) - n
+        if best_waste is None or waste < best_waste or (waste == best_waste and b > best):
+            best_waste, best = waste, b
+    return best
+
+
+def _pick_q_chunks(bq: int, ch_cap: int, chq: int = 16) -> int:
+    for c in range(1, bq // chq + 1):
+        if bq % c == 0 and (bq // c) % chq == 0 and bq // c <= ch_cap:
+            return c
+    return 1
+
+
+def _best_block_chunked(
+    n: int, ch_cap: int, lo: int = 256, hi: int = 1088, chq: int = 16
+) -> tuple[int, int]:
+    best_key, best = None, (min(_round_up(n, chq), hi), 1)
+    for ch_min in (min(_round_up(128, chq), ch_cap), chq):
+        for bq in range(lo, hi + 1, chq):
+            waste = _round_up(n, bq) - n
+            for c in range(1, bq // chq + 1):
+                ch = bq // c
+                if bq % c == 0 and ch % chq == 0 and ch_min <= ch <= ch_cap:
+                    key = (waste, -ch, -bq)
+                    if best_key is None or key < best_key:
+                        best_key, best = key, (bq, c)
+                    break  # first divisor = largest chunk for this bq
+        if best_key is not None:
+            return best
+    return best
+
+
+def _auto_blocks(n: int, chq: int = 16) -> tuple[int, int, int]:
+    nk_full = _round_up(n, chq)
+    ch_cap = max(chq, min(320, (4_500_000 // (nk_full * 6)) // chq * chq))
+    if n <= 1280:
+        bq, bk = _round_up(n, chq), nk_full
+        qc = _pick_q_chunks(bq, ch_cap, chq)
+    elif ch_cap >= 128:
+        bq, qc = _best_block_chunked(n, ch_cap, chq=chq)
+        bk = nk_full
+    else:
+        bq, bk = _best_block(n), _best_block(n)
+        qc = 1
+    return bq, bk, qc
+
+
+def q_chunk_rows(n: int) -> int:
+    """Rows of q that share one int8 scale for ``n`` tokens: the TPU
+    kernel's automatic chunk height under quant (``_auto_blocks(n, chq=32)``;
+    1029 tokens: 96, 4101: 160). Chunks count from row 0. Raises
+    ``NotImplementedError`` where the JAX wrapper does: when the keys do not
+    fit one block (from 5857 tokens)."""
+    bq, bk, qc = _auto_blocks(n, chq=32)
+    if _round_up(n, bk) != bk:
+        raise NotImplementedError(
+            f"int8 attention internals support the single-K-block path only: {n} tokens "
+            "do not fit one key block"
+        )
+    return bq // qc
+
+
+def _check_quant(quant: str) -> None:
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r}; expected one of {QUANT_MODES}")
 
 
 def flash_attention_reference(
@@ -53,6 +148,7 @@ def flash_attention_reference(
     num_heads: int,
     true_len: int | None = None,
     scale: float | None = None,
+    quant: str = "",
 ) -> torch.Tensor:
     """Plain attention: ``softmax(scale·(q+bq)(k+bk)ᵀ)(v+bv)`` per head.
 
@@ -61,21 +157,123 @@ def flash_attention_reference(
     D^-½. The biases are added in the input dtype, the softmax runs in f32
     and the probabilities are rounded to v's dtype before the product with
     v, as in the kernel. Returns ``(B, N, H·D)`` in q's dtype.
-    """
+
+    ``quant`` (one of :data:`QUANT_MODES`) takes the int8 internals of the
+    JAX ``flash_attention_pairs(quant=...)`` (:func:`_int8_attention`)."""
+    _check_quant(quant)
+    if quant:
+        return _int8_attention(q, k, v, bias, num_heads, true_len, scale, quant)
     b, n, c = q.shape
-    d = c // num_heads
     kv_len = n if true_len is None else true_len
-    scale = d**-0.5 if scale is None else scale
-
-    def heads(x: torch.Tensor, row: int) -> torch.Tensor:
-        return (x + bias[row]).float().reshape(b, n, num_heads, d)
-
-    qh = heads(q, 0)
-    kh = heads(k, 1)[:, :kv_len]
-    vh = heads(v, 2)[:, :kv_len]
+    scale = (c // num_heads) ** -0.5 if scale is None else scale
+    qh = _biased_heads(q, bias[0], num_heads)
+    kh = _biased_heads(k, bias[1], num_heads)[:, :kv_len]
+    vh = _biased_heads(v, bias[2], num_heads)[:, :kv_len]
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+    return out.reshape(b, n, c).to(q.dtype)
+
+
+def _int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale of a tensor part: ``max|x| · (1/127)`` (f32)."""
+    return amax * _INV127
+
+
+def _to_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``round(x · 1/max(scale, 1e-20))``, half to even, no clip (|x| ≤
+    127·scale), as f32 values; the reciprocal is taken first, as the TPU
+    kernel does."""
+    return torch.round(x * (1.0 / scale.clamp_min(1e-20)))
+
+
+def _biased_heads(x: torch.Tensor, bias_row: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``(B, N, H·D)`` + bias, added in x's dtype, as f32 ``(B, N, H, D)``."""
+    b, n, c = x.shape
+    return (x + bias_row).float().reshape(b, n, num_heads, c // num_heads)
+
+
+def attention_int8_scales_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    num_heads: int,
+    true_len: int | None = None,
+    quant: str = "qkpv",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 int8 scales of :func:`flash_attention`'s ``quant`` modes:
+
+    - ``sq`` ``(B, H, ⌈N/ch⌉)`` under ``qk``: one per chunk of
+      ``ch = q_chunk_rows(N)`` rows of q + b_q from row 0. Rows from N up
+      to the last chunk's end are the TPU kernel's zero pad plus b_q, so
+      |b_q| enters the last chunk's max;
+    - ``sk`` ``(B, H)`` under ``qk``: over the keys below ``true_len``;
+    - ``sv`` ``(B, H, D)`` under ``pv``: per column of v + b_v over the
+      keys below ``true_len`` (the ones column that carries the softmax
+      denominator has the exact scale 1/127 and needs no entry).
+
+    Each is ``max|·| · (1/127)`` of the bf16 sums; a mode's unused scales
+    are empty."""
+    _check_quant(quant)
+    b, n, c = q.shape
+    kv_len = n if true_len is None else true_len
+    ch = q_chunk_rows(n)  # raises beyond the single-key-block limit, in every mode
+    empty = q.new_empty(0, dtype=torch.float32)
+    sq = sk = sv = empty
+    if "qk" in quant:
+        pad = _round_up(n, ch) - n
+        qp = torch.cat([q, q.new_zeros(b, pad, c)], dim=1)
+        qh = _biased_heads(qp, bias[0], num_heads)
+        chunks = qh.reshape(b, -1, ch, num_heads, c // num_heads)
+        sq = _int8_scale(chunks.abs().amax(dim=(2, 4))).transpose(1, 2).contiguous()
+        kh = _biased_heads(k, bias[1], num_heads)[:, :kv_len]
+        sk = _int8_scale(kh.abs().amax(dim=(1, 3)))
+    if "pv" in quant:
+        vh = _biased_heads(v, bias[2], num_heads)[:, :kv_len]
+        sv = _int8_scale(vh.abs().amax(dim=1))
+    return sq, sk, sv
+
+
+def _int8_attention(q, k, v, bias, num_heads, true_len, scale, quant):
+    """The JAX single-K-block kernel's int8 numerics, in f32 around exact
+    integer products (int8·int8 sums of 64 terms are exact in f32; P·V's
+    sums over keys are taken in float64, exact below 2^53):
+
+    - ``qk``: s = f32(Σ qi·ki) · ((sq·sk) · scale·log2 e), with qi, ki the
+      int8 values of q + b_q (per-chunk scale) and k + b_k (per-head scale);
+    - the exact row max m over the keys below ``true_len``, p = 2^(s − m),
+      rounded to v's dtype;
+    - ``pv``: pi = round(127 p), vi the int8 values of v + b_v (per-column
+      scale); out = f32(Σ pi·vi) · (sv/127) over the denominator
+      f32(127 Σ pi) · (1/127)² (V's ones column, whose int8 value is 127);
+    - otherwise out = Σ p·v / Σ p in f32, from the rounded p."""
+    b, n, c = q.shape
+    d = c // num_heads
+    kv_len = n if true_len is None else true_len
+    scale_log2 = (d**-0.5 if scale is None else scale) * _LOG2E
+    sq, sk, sv = attention_int8_scales_reference(q, k, v, bias, num_heads, true_len, quant)
+    qh = _biased_heads(q, bias[0], num_heads)
+    kh = _biased_heads(k, bias[1], num_heads)[:, :kv_len]
+    vh = _biased_heads(v, bias[2], num_heads)[:, :kv_len]
+    if "qk" in quant:
+        sq_rows = sq[:, :, torch.arange(n, device=q.device) // q_chunk_rows(n)]  # (B, H, N)
+        qi = _to_int8(qh, sq_rows.transpose(1, 2)[..., None])
+        ki = _to_int8(kh, sk[:, None, :, None])
+        s = torch.einsum("bqhd,bkhd->bhqk", qi, ki)
+        s = s * ((sq_rows * sk[:, :, None]) * scale_log2)[..., None]
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale_log2
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(v.dtype).float()
+    if "pv" in quant:
+        pi = torch.round(p * 127.0).double()
+        vi = _to_int8(vh, sv[:, None]).double()
+        num = torch.einsum("bhqk,bkhd->bqhd", pi, vi).float() * (sv * _INV127)[:, None]
+        denom = (pi.sum(dim=-1) * 127.0).float() * _ONES_DEQUANT
+        out = num * (1.0 / denom.transpose(1, 2))[..., None]
+    else:
+        denom = p.sum(dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vh) * (1.0 / denom.transpose(1, 2))[..., None]
     return out.reshape(b, n, c).to(q.dtype)
 
 
@@ -113,31 +311,96 @@ def flash_attention(
     num_heads: int,
     true_len: int | None = None,
     scale: float | None = None,
+    quant: str = "",
 ) -> torch.Tensor:
     """Attention as :func:`flash_attention_reference` computes it.
 
     On a CUDA device the Hopper kernel runs: bf16 q/k/v/bias, head dim 64,
     q/k/v sharing strides with a unit column stride (views of one fused qkv
-    output qualify). Anything it cannot take raises; it never falls back.
-    """
+    output qualify). A ``quant`` mode runs :func:`attention_int8_scales`
+    and then the int8 kernel, up to the single-key-block limit of
+    :func:`q_chunk_rows`. Anything they cannot take raises; they never fall
+    back."""
+    _check_quant(quant)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, num_heads, true_len, scale)
+        return flash_attention_reference(q, k, v, bias, num_heads, true_len, scale, quant)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     b, n, c = q.shape
     kv_len = n if true_len is None else true_len
-    scale = HEAD_DIM**-0.5 if scale is None else scale
+    scale_log2 = float((HEAD_DIM**-0.5 if scale is None else scale) * _LOG2E)
     _check_cuda_args(q, k, v, bias, num_heads, kv_len)
     lib = kernels.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    if quant:
+        sq, sk, sv = _launch_scales(q, k, v, bias, num_heads, kv_len, quant)
+        rc = lib.cryovit_flash_attention_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), sq.data_ptr(),
+            sk.data_ptr(), sv.data_ptr(), out.data_ptr(), b, n, num_heads, q.stride(1),
+            q.stride(0), kv_len, q_chunk_rows(n), sq.shape[-1], scale_log2, _mode(quant), stream,
+        )
+        kernels.check(rc, "flash_attention_int8")
+        kernels.count_launch("flash_attention_int8")
+        return out
     rc = lib.cryovit_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, n, num_heads, q.stride(1), q.stride(0), kv_len,
-        float(scale * _LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
+        scale_log2, stream,
     )
     kernels.check(rc, "flash_attention")
     kernels.count_launch("flash_attention")
     return out
+
+
+def _mode(quant: str) -> int:
+    """The kernels' mode bits: 1 for int8 Q·Kᵀ, 2 for int8 P·V."""
+    return ("qk" in quant) | ("pv" in quant) << 1
+
+
+def _launch_scales(q, k, v, bias, num_heads, kv_len, quant):
+    b, n, _ = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    empty = torch.empty(0, **f32)
+    ch = q_chunk_rows(n)
+    sq, sk, sv = empty, empty, empty
+    if "qk" in quant:
+        sq = torch.empty((b, num_heads, -(-n // ch)), **f32)
+        sk = torch.empty((b, num_heads), **f32)
+    if "pv" in quant:
+        sv = torch.empty((b, num_heads, HEAD_DIM), **f32)
+    rc = kernels.load_library().cryovit_attention_int8_scales(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), sq.data_ptr(), sk.data_ptr(),
+        sv.data_ptr(), b, n, num_heads, q.stride(1), q.stride(0), kv_len, ch,
+        -(-n // ch), _mode(quant), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(rc, "flash_attention_int8_scales")
+    kernels.count_launch("flash_attention_int8_scales")
+    return sq, sk, sv
+
+
+def attention_int8_scales(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    num_heads: int,
+    true_len: int | None = None,
+    quant: str = "qkpv",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 scales of :func:`attention_int8_scales_reference`; on a
+    CUDA device one launch of the pre-pass kernel that :func:`flash_attention`
+    runs before its int8 kernel, with the same argument checks."""
+    _check_quant(quant)
+    if not quant:
+        raise ValueError("attention_int8_scales needs a quant mode")
+    if q.device.type == "cpu":
+        return attention_int8_scales_reference(q, k, v, bias, num_heads, true_len, quant)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    kv_len = q.shape[1] if true_len is None else true_len
+    _check_cuda_args(q, k, v, bias, num_heads, kv_len)
+    return _launch_scales(q, k, v, bias, num_heads, kv_len, quant)
 
 
 def flash_attention_bhnd_reference(

@@ -117,8 +117,9 @@ def load_extractor(
     dtype: torch.dtype | None = None,
 ) -> DinoV2:
     """The backbone, built from :func:`load_dinov2_variables`, on ``device``
-    (default: the GPU if there is one) in ``dtype`` (default: bf16 on a GPU,
-    f32 on the CPU)."""
+    in ``dtype`` (default: bf16 on a GPU, f32 on the CPU). The default device
+    is the GPU: without one, :func:`resolve_device` raises, and the CPU is
+    taken only when named (``device="cpu"``)."""
     device = resolve_device(device)
     sd, _ = load_dinov2_variables(model_dir, random_init, cfg, device)
     return make_dinov2(sd, cfg, device=device, dtype=dtype or compute_dtype(device))

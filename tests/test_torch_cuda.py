@@ -42,6 +42,21 @@ def _close(got, want):
     assert (got - want).abs().max().item() <= tol
 
 
+# The int8 attention's second limit (chip_smoke.py holds the kernel to the
+# same): the RMS over output rows (one head's 64 values of one token) of each
+# row's relative L2 error. On the outlier inputs the largest values are
+# those of the few rows that attend to the ×16 value row, so _close alone
+# would pass a fault on the ordinary rows; here every row counts alike.
+INT8_ROW_RMS = 2.0**-7
+
+
+def row_rms(got, want, width=fa.HEAD_DIM):
+    """Root mean square over rows of ``width`` values of each row's relative
+    L2 error ``‖got − want‖ / ‖want‖``."""
+    got, want = (t.float().reshape(-1, width) for t in (got, want))
+    return ((got - want).norm(dim=1) / want.norm(dim=1)).square().mean().sqrt().item()
+
+
 @pytest.mark.parametrize("b,n,heads,true_len", [(2, 37, 2, None), (3, 130, 4, 101), (1, 1029, 24, None)])
 def test_attention_kernel_matches_plain(cuda, b, n, heads, true_len):
     c = heads * fa.HEAD_DIM
@@ -50,6 +65,60 @@ def test_attention_kernel_matches_plain(cuda, b, n, heads, true_len):
     bias = _randn(cuda, 3, c, seed=1, scale=0.5)
     _close(fa.flash_attention(q, k, v, bias, heads, true_len),
            fa.flash_attention_reference(q, k, v, bias, heads, true_len))
+
+
+def _outlier_qkv(dev, b, n, heads):
+    """q, k, v as column views of one projection, with int8 outliers: q rows
+    ≡ 3 (mod 64) ×16 (q ×4 overall), key 7 and value row 11 ×16."""
+    c = heads * fa.HEAD_DIM
+    qkv = _randn(dev, b, n, 3 * c)
+    qkv[..., :c] *= 4
+    qkv[:, 3::64, :c] *= 16
+    qkv[:, min(7, n - 1), c : 2 * c] *= 16
+    qkv[:, min(11, n - 1), 2 * c :] *= 16
+    return qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
+
+
+@pytest.mark.parametrize("quant", ["qk", "pv", "qkpv"])
+@pytest.mark.parametrize("b,n,heads,true_len", [(2, 37, 2, None), (3, 130, 4, 101),
+                                                (2, 520, 2, 515), (1, 1029, 24, None),
+                                                (1, 4101, 2, None)])
+def test_int8_attention_kernel_matches_plain(cuda, quant, b, n, heads, true_len):
+    """The int8 kernel against its plain version (exact integer products)
+    on outlier inputs, by the largest error and by every row's;
+    q chunks of 32 (N=520), 96 (1029) and 160 (4101)."""
+    q, k, v = _outlier_qkv(cuda, b, n, heads)
+    bias = _randn(cuda, 3, heads * fa.HEAD_DIM, seed=1, scale=0.5)
+    got = fa.flash_attention(q, k, v, bias, heads, true_len, quant=quant)
+    want = fa.flash_attention_reference(q, k, v, bias, heads, true_len, quant=quant)
+    _close(got, want)
+    assert row_rms(got, want) <= INT8_ROW_RMS
+
+
+@pytest.mark.parametrize("quant", ["qk", "pv", "qkpv"])
+@pytest.mark.parametrize("b,n,heads,true_len", [(2, 520, 2, 515), (1, 1029, 4, None),
+                                                (1, 4101, 2, 4000)])
+def test_int8_scales_kernel_equals_plain(cuda, quant, b, n, heads, true_len):
+    """The pre-pass's scales equal the plain ones bit for bit (a max and one
+    f32 product each)."""
+    q, k, v = _outlier_qkv(cuda, b, n, heads)
+    bias = _randn(cuda, 3, heads * fa.HEAD_DIM, seed=1, scale=4.0)
+    got = fa.attention_int8_scales(q, k, v, bias, heads, true_len, quant)
+    want = fa.attention_int8_scales_reference(q, k, v, bias, heads, true_len, quant)
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_int8_attention_refuses_what_it_cannot_take(cuda):
+    c = 2 * fa.HEAD_DIM
+    q = torch.zeros(1, 5857, c, device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros(3, c, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="single-K-block"):
+        fa.flash_attention(q, q, q, bias, 2, quant="pv")
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention(q.float(), q.float(), q.float(), bias.float(), 2, quant="qk")
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        fa.flash_attention(q, q, q, bias, 2, quant="int8")
 
 
 @pytest.mark.parametrize("b,n,heads", [(2, 37, 2), (3, 130, 4), (2, 1029, 24)])
@@ -221,11 +290,14 @@ def test_each_launch_counts_once(cuda):
     fa.flash_attention_bnhd(qh, qh, qh)
     ln = (t.bfloat16() for t in _block_params(cuda, 72, 72, 72)[:2])
     fn.residual_layernorm(xw, xw, None, *ln)
+    qc = _randn(cuda, 1, 16, 128)
+    fa.flash_attention(qc, qc, qc, _randn(cuda, 3, 128), 2, quant="qkpv")
+    fa.attention_int8_scales(qc, qc, qc, _randn(cuda, 3, 128), 2, quant="pv")
     assert kernels.launch_counts() == {
         "flash_attention": 0, "conv3d_dm": 1, "convt2x_dm": 2, "conv3d_dm_dw": 1,
         "convt2x_dm_bwd": 1, "window_block_attention": 1, "window_block_mlp": 1,
         "window_attention": 1, "flash_attention_bhnd": 1, "flash_attention_bnhd": 2,
-        "residual_layernorm": 1,
+        "residual_layernorm": 1, "flash_attention_int8": 1, "flash_attention_int8_scales": 2,
     }
 
 

@@ -16,6 +16,7 @@ from cryovit_tpu_torch.io import load_data, load_files_from_path, read_mrc, writ
 from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
 from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
 from cryovit_tpu_torch.ops.flash_attention import (
+    attention_int8_scales,
     flash_attention,
     flash_attention_bhnd,
     flash_attention_bnhd,
@@ -76,6 +77,9 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
     assert dx.shape == x.shape and dw.shape == (1, 2, 2, 8, 16)
     q = torch.from_numpy(rng.standard_normal((2, 9, 128)).astype(np.float32))
     assert flash_attention(q, q, q, torch.zeros(3, 128), 2).shape == (2, 9, 128)
+    for quant in ("qk", "pv", "qkpv"):
+        assert flash_attention(q, q, q, torch.zeros(3, 128), 2, quant=quant).shape == (2, 9, 128)
+        assert len(attention_int8_scales(q, q, q, torch.zeros(3, 128), 2, quant=quant)) == 3
     xw = torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32))
     ln = (torch.ones(8), torch.zeros(8))
     assert window_block_attention(xw, *ln, torch.ones(24, 8), torch.zeros(24), torch.ones(8, 8),
@@ -94,13 +98,15 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
         "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
         "window_block_attention", "window_block_mlp", "window_attention",
         "flash_attention_bhnd", "flash_attention_bnhd", "residual_layernorm",
+        "flash_attention_int8", "flash_attention_int8_scales",
     }
 
 
 @pytest.mark.parametrize(
     "op",
     ["attention", "conv3d", "convt", "conv3d_dw", "convt_bwd", "window_block", "window_mlp",
-     "window_attention", "attention_bhnd", "attention_bnhd", "residual_layernorm"],
+     "window_attention", "attention_bhnd", "attention_bnhd", "residual_layernorm",
+     "attention_int8", "attention_int8_scales"],
 )
 def test_wrappers_refuse_devices_without_a_kernel(op):
     """A tensor on neither the CPU nor a GPU raises: there is no fallback to
@@ -113,6 +119,11 @@ def test_wrappers_refuse_devices_without_a_kernel(op):
         "window_mlp": lambda: window_block_mlp(x[0], v, v, w, v, w, v),
         "window_attention": lambda: window_attention(x[0], x[0], x[0], 1),
         "attention": lambda: flash_attention(x[0, 0], x[0, 0], x[0, 0], torch.empty(3, 4, device="meta"), 1),
+        "attention_int8": lambda: flash_attention(x[0, 0], x[0, 0], x[0, 0],
+                                                  torch.empty(3, 4, device="meta"), 1,
+                                                  quant="qkpv"),
+        "attention_int8_scales": lambda: attention_int8_scales(
+            x[0, 0], x[0, 0], x[0, 0], torch.empty(3, 4, device="meta"), 1),
         "attention_bhnd": lambda: flash_attention_bhnd(x[0], x[0], x[0]),
         "attention_bnhd": lambda: flash_attention_bnhd(x[0], x[0], x[0]),
         "residual_layernorm": lambda: residual_layernorm(x, x, v, v, v),
