@@ -16,14 +16,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    ViT-g's 64×1029 tokens); at the training crop's (128×512×512 labels) the
    backward kernels and conv3d_dm's twelve calls of a train step (forward,
    and input gradient with flipped, in/out-swapped taps); the three Hiera
-   kernels at Hiera-L's stage-3 shapes for a batch of 64 slices at 512²;
+   kernels at Hiera-L's stage-3 shapes for a batch of 64 slices at 512²,
+   and the global attention again at Hiera-T's (4 heads of 96); the pair
+   attention also at ViT-g's 16×4101 tokens (1024²);
    the int8 attention (``flash_attention(quant=...)``, each of qk, pv,
    qkpv) and its scale pre-pass at ViT-g's 64×1029 and 16×4101 tokens, on
    inputs with outliers (plain random inputs cannot tell int8 from bf16),
    held also by the RMS of each output row's relative error, whose limit
    must fall below the readings of planted faults in the plain version.
    Kernel, plain and library times from CUDA events, and the least time the
-   card could take (``bound_ms``).
+   card could take (``bound_ms``); TFLOP/s on every attention row.
 4. reference — the serving path on the GPU (bf16, kernels) against the same
    path on the CPU (f32, plain versions) on a small input, once for each
    DINOv2 configuration: the default, ``pair_heads=False`` and
@@ -34,8 +36,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    gradient.
 6. SAM reference — the SAM2 image encoder on the GPU (bf16, kernels)
    against the CPU (f32, plain versions), seeded weights, a small config
-   that opens both Hiera kernel gates at head width 72: cosine and relative
-   L2 error per FPN level.
+   that opens both Hiera kernel gates, at head width 72 and again at 96:
+   cosine and relative L2 error per FPN level.
 7. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
    the full-width DINOv2 ViT-g/14 with seeded random weights and a seeded
    CryoVIT decoder saved as a ``.model``; fused inference (raw tomogram →
@@ -64,7 +66,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    --use-sam``'s extractor) on a synthetic 64×512×512 tomogram at Hiera-L
    full width, slice batch 64: the pyramids' shapes and values, each Hiera
    kernel's launches against the counts its gates give, slices/s with host
-   I/O, peak memory and a profile of one batch.
+   I/O, peak memory and a profile of one batch. Then the same at Hiera-T
+   full width (``SAM2Config.medsam_tiny()``, MedSAM's trunk: its three
+   global blocks run the attention kernel at head width 96; exactly 0/0/3
+   launches per batch), slices/s and peak memory, with the last stage's
+   window 14 instead of 7 (``HIERA_T_LAST_WINDOW``: with 7 the q-pool
+   block 10 fails in the JAX reference and the port alike).
 
 Launch counters are zeroed just before each main path and read just after;
 every kernel of a path must have run (the SAM path: exactly the counts the
@@ -98,13 +105,16 @@ SLICE_BATCH = 64
 TRAIN_DEPTH = 128  # the reference training crop: 128 slices of 512² voxels
 TRAIN_EPOCHS = 8
 ATTN_SHAPE = (64, 1029, 24)  # (slices per chunk, tokens at 512², heads of 64)
+# row 1 at 1024² (4101 tokens): slices per batch, tokens, heads, slices per
+# plain call (its B·H·N² f32 scores)
+ATTN_SHAPE_1024 = (16, 4101, 24, 2)
 # (Ci, Co, H = W, depth dilation) of every conv3d_dm call for a 512² tomogram
 CONV_SHAPES = [(32, 32, 128, 8), (32, 32, 128, 4), (32, 16, 256, 2), (16, 16, 256, 1),
                (8, 8, 512, 1), (8, 1, 512, 1)]
 # (Ci, Co, H = W) of every convt2x_dm call
 CONVT_SHAPES = [(32, 32, 128), (16, 8, 256)]
 KERNELS = {
-    "flash_attention": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("cryovit_tpu_torch/csrc/attention_sm90.cu",
                         "cryovit_tpu/ops/flash_attention.py:226"),
     "conv3d_dm": ("cryovit_tpu_torch/csrc/conv3d_dm.cu", "cryovit_tpu/ops/conv3d_dm.py:162"),
     "convt2x_dm": ("cryovit_tpu_torch/csrc/convt_dm.cu", "cryovit_tpu/ops/convt_dm.py:74"),
@@ -116,11 +126,11 @@ KERNELS = {
                                "cryovit_tpu/ops/window_attention.py:112"),
     "window_block_mlp": ("cryovit_tpu_torch/csrc/window_block.cu",
                          "cryovit_tpu/ops/window_attention.py:226"),
-    "window_attention": ("cryovit_tpu_torch/csrc/window_attention.cu",
+    "window_attention": ("cryovit_tpu_torch/csrc/attention_sm90.cu",
                          "cryovit_tpu/ops/window_attention.py:311"),
-    "flash_attention_bhnd": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bhnd": ("cryovit_tpu_torch/csrc/attention_sm90.cu",
                              "cryovit_tpu/ops/flash_attention.py:53"),
-    "flash_attention_bnhd": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bnhd": ("cryovit_tpu_torch/csrc/attention_sm90.cu",
                              "cryovit_tpu/ops/flash_attention.py:53"),
     "residual_layernorm": ("cryovit_tpu_torch/csrc/fused_norm.cu",
                            "cryovit_tpu/ops/fused_norm.py:69"),
@@ -139,9 +149,20 @@ TRAIN_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 12, "convt2x_dm
 # 64 images of 32×32 tokens
 WINDOW_SHAPE = (256, 256, 576, 8, 2304)  # (windows, tokens, C, heads, hidden)
 GLOBAL_SHAPE = (64, 1024, 8, 72)  # (batch, tokens, heads, head dim)
+# Hiera-T's (SAM2Config.medsam_tiny()) global blocks 5, 7, 9 for a batch of
+# 64 slices at 512²: 32×32 tokens, 384 channels in 4 heads of 96
+GLOBAL_SHAPE_T = (64, 1024, 4, 96)
 # per 64-slice batch at 512², from the gates over HieraConfig.large(): of the
 # 36 stage-3 blocks, block 8 pools and 23, 33, 43 are global
 SAM_BATCH_LAUNCHES = {"window_block_attention": 32, "window_block_mlp": 32, "window_attention": 3}
+# the same for Hiera-T: its windows (64, 16, 196 tokens) open no block
+# gate, its three global blocks the attention gate
+SAM_T_BATCH_LAUNCHES = {"window_block_attention": 0, "window_block_mlp": 0, "window_attention": 3}
+# Hiera-T's last-stage window in the SAM serving phase: 14, not its 7. With
+# 7 the q-pool block 10 pools 7×7 windows to 3×3 and cannot reassemble them
+# (the JAX reference raises there too, at any image size: ROADMAP.md C2);
+# every block before it, the three global blocks among them, is Hiera-T's
+HIERA_T_LAST_WINDOW = 14
 # the DINOv2 variants: make_dinov2 options and their launches per block of
 # one 64-slice batch (ViT-g: 40 blocks)
 # LayerScale of the variants' agreement check: the seeded 1e-5 leaves every
@@ -301,6 +322,36 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
         f"(scaled_dot_product_attention, (B, H, N, 64) bf16), bound {row['bound_ms']:.3f} ms "
         f"({row['bound_by']})")
     results["flash_attention"] = row
+    del qkv, q, k, v, qh, kh, vh
+
+    # the same kernel at 1024² (the DINOv2 int8 phase's bf16 default); the
+    # plain version a few slices a call
+    b, n, h, per_call = ATTN_SHAPE_1024
+    c = h * fa.HEAD_DIM
+    qkv = randn(b, n, 3 * c)
+    q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
+    bias = randn(3, c, scale=0.5)
+    qh, kh, vh = ((t + bias[i]).view(b, n, h, fa.HEAD_DIM).transpose(1, 2).contiguous()
+                  for i, t in enumerate((q, k, v)))
+    row = compare(
+        "flash_attention",
+        lambda: fa.flash_attention(q, k, v, bias, h),
+        lambda: torch.cat([fa.flash_attention_reference(q[i : i + per_call], k[i : i + per_call],
+                                                        v[i : i + per_call], bias, h)
+                           for i in range(0, b, per_call)]),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh),
+        iters=5,
+    )
+    flops = 4 * b * h * n * n * fa.HEAD_DIM
+    row = with_bound(row, 2 * (4 * b * n * c + 3 * c), flops)
+    log("kernels", f"flash_attention B={b} N={n} H={h}x64: max|err| {row['max_abs_err']:.3g}, "
+        f"kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{row['plain_ms']:.3f} ms ({per_call} slices a call), library {row['library_ms']:.3f} "
+        f"ms (scaled_dot_product_attention, {flops / row['library_ms'] / 1e9:.1f} TFLOP/s), "
+        f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    results["flash_attention 1024^2"] = row
+    results["flash_attention"]["max_abs_err"] = max(results["flash_attention"]["max_abs_err"],
+                                                    row["max_abs_err"])
     del qkv, q, k, v, qh, kh, vh
 
     def conv_flops(ci, co, side, dil, depth):
@@ -484,26 +535,29 @@ def window_kernel_rows(dev: torch.device, randn) -> dict[str, dict]:
         f"({row['bound_by']})")
     del x, p
 
-    b, t, heads, d = GLOBAL_SHAPE
-    c = heads * d
-    qkv = randn(b, t, 3 * c)  # q, k, v as column views, as the global blocks pass them
-    qkv[..., :c] *= d**-0.5 * wa.LOG2E  # q pre-scaled, as the folded projection gives it
-    q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
-    qh, kh, vh = (a.reshape(b, t, heads, d).transpose(1, 2).contiguous() for a in (q, k, v))
-    row = compare(
-        "window_attention",
-        lambda: wa.window_attention(q, k, v, heads),
-        lambda: wa.window_attention_reference(q, k, v, heads),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0 / wa.LOG2E),
-        iters=10,
-    )
-    flops = 4 * b * heads * t * t * d
-    results["window_attention"] = row = with_bound(row, 2 * 4 * b * t * c, flops)
-    log("kernels", f"window_attention B={b} T={t} H={heads}x{d}: max|err| "
-        f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
-        f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
-        f"(scaled_dot_product_attention, (B, H, T, {d}) bf16), bound {row['bound_ms']:.3f} ms "
-        f"({row['bound_by']})")
+    for key, (b, t, heads, d) in (("window_attention", GLOBAL_SHAPE),
+                                  ("window_attention hiera_t", GLOBAL_SHAPE_T)):
+        c = heads * d
+        qkv = randn(b, t, 3 * c)  # q, k, v as column views, as the global blocks pass them
+        qkv[..., :c] *= d**-0.5 * wa.LOG2E  # q pre-scaled, as the folded projection gives it
+        q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
+        qh, kh, vh = (a.reshape(b, t, heads, d).transpose(1, 2).contiguous() for a in (q, k, v))
+        row = compare(
+            "window_attention",
+            lambda: wa.window_attention(q, k, v, heads),
+            lambda: wa.window_attention_reference(q, k, v, heads),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0 / wa.LOG2E),
+            iters=10,
+        )
+        flops = 4 * b * heads * t * t * d
+        results[key] = row = with_bound(row, 2 * 4 * b * t * c, flops)
+        log("kernels", f"window_attention B={b} T={t} H={heads}x{d}: max|err| "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
+            f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+            f"(scaled_dot_product_attention, (B, H, T, {d}) bf16, "
+            f"{flops / row['library_ms'] / 1e9:.1f} TFLOP/s), bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']})")
+        del qkv, q, k, v, qh, kh, vh
     return results
 
 
@@ -684,7 +738,8 @@ def int8_attention_rows(dev: torch.device) -> dict[str, dict]:
                 f"max|err| {row['max_abs_err']:.3g} (limit {row['max_abs_limit']:.4g}), row RMS "
                 f"relative error {row['row_rms']:.4g} (limit {INT8_ROW_RMS:.4g}; planted faults "
                 f"in the plain version: {readings}), kernel {row['ms']:.3f} ms (with the scale "
-                f"pre-pass), plain {row['plain_ms']:.3f} ms ({per_call} slices a call), library: "
+                f"pre-pass; {2 * products / row['ms'] / 1e9:.1f} TOP/s), plain "
+                f"{row['plain_ms']:.3f} ms ({per_call} slices a call), library: "
                 f"none (no PyTorch call computes int8 attention; scaled_dot_product_attention "
                 f"bf16 on the same shape {sdpa_ms:.3f} ms), bound {row['bound_ms']:.3f} ms "
                 f"({row['bound_by']})")
@@ -899,14 +954,15 @@ def _pyramid_agreement(got: list, want: list) -> list[tuple[float, float]]:
     return out
 
 
-def sam_reference_phase(dev: torch.device) -> dict[str, int]:
+def sam_reference_phase(dev: torch.device) -> None:
     """The SAM2 encoder on 2 slices at 512², GPU bf16 through the kernels vs
-    CPU f32 through the plain versions, the same seeded weights: Hiera of
-    width 72 (one head of 72 in every stage), stages (1, 1, 3, 1), stage-3
-    window 16 on a 32×32 grid and block 4 global, so one block takes each
-    kernel gate; d_model 256. Per FPN level cosine >= 0.9995 and relative L2
-    error <= 0.03 (the CPU's bf16 plain path gives >= 0.99995 and <= 0.0094
-    against f32 on the same input)."""
+    CPU f32 through the plain versions, the same seeded weights, once for
+    each head width the attention kernel takes: Hiera of width 72 (one head
+    of 72 in every stage, as sam2.1_hiera_l) and of width 96 (Hiera-T's),
+    stages (1, 1, 3, 1), stage-3 window 16 on a 32×32 grid and block 4
+    global, so one block takes each kernel gate; d_model 256. Per FPN level
+    cosine >= 0.9995 and relative L2 error <= 0.03 (the CPU's bf16 plain
+    path gives >= 0.99995 and <= 0.0094 against f32 on the same input)."""
     import numpy as np
 
     from cryovit_tpu_torch import kernels
@@ -914,41 +970,49 @@ def sam_reference_phase(dev: torch.device) -> dict[str, int]:
     from cryovit_tpu_torch.models.sam2.encoder import make_image_encoder, sine_position_encoding
     from cryovit_tpu_torch.run.sam_features import SamFeatureExtractor, make_sam_encoder_state
 
-    cfg = SAM2Config(hiera=HieraConfig(embed_dim=72, num_heads=1, stages=(1, 1, 3, 1),
-                                       window_spec=(8, 4, 16, 8), global_att_blocks=(4,)))
-    sd = make_sam_encoder_state(cfg=cfg, random_init=True, device="cpu", seed=3)
-    stack = np.random.default_rng(5).random((2, 512, 512)).astype(np.float32)
-    kernels.reset_launch_counts()
-    gpu = SamFeatureExtractor(make_image_encoder(sd, cfg, device=dev), batch_size=2).extract(stack)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    encoder = make_image_encoder(sd, cfg, device="cpu", dtype=torch.float32)
-    cpu = SamFeatureExtractor(encoder, batch_size=2).extract(stack)
-    agree = _pyramid_agreement(gpu["backbone_fpn"], cpu["backbone_fpn"])
-    log("sam-ref", "2x512x512 slices, Hiera 72-wide (1 head of 72 per stage), GPU bf16 vs CPU "
-        "f32 per FPN level: " + ", ".join(f"level {i} cos {c:.6f} rel L2 {r:.4g}"
-                                          for i, (c, r) in enumerate(agree))
-        + f" (limits cos >= 0.9995, rel <= 0.03); launches {counts}")
-    # the encodings pass through the compute dtype: bf16 on the GPU, then fp16
-    pos_equal = all(
-        np.array_equal(p[0], torch.from_numpy(sine_position_encoding(*p.shape[2:], cfg.d_model)
-                                              .copy()).to(torch.bfloat16).to(torch.float16)
-                       .permute(2, 0, 1).numpy())
-        for p in gpu["vision_pos_enc"]
-    )
-    checks = {
-        "every level within the limits": all(c >= 0.9995 and r <= 0.03 for c, r in agree),
-        "each Hiera kernel launched once": all(counts[k] == 1 for k in SAM_BATCH_LAUNCHES),
-        "position encodings: the f32 sine table through bf16 and fp16": pos_equal,
-    }
+    checks = {}
+    for width in (72, 96):
+        cfg = SAM2Config(hiera=HieraConfig(embed_dim=width, num_heads=1, stages=(1, 1, 3, 1),
+                                           window_spec=(8, 4, 16, 8), global_att_blocks=(4,)))
+        sd = make_sam_encoder_state(cfg=cfg, random_init=True, device="cpu", seed=3)
+        stack = np.random.default_rng(5).random((2, 512, 512)).astype(np.float32)
+        kernels.reset_launch_counts()
+        gpu = SamFeatureExtractor(make_image_encoder(sd, cfg, device=dev),
+                                  batch_size=2).extract(stack)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        encoder = make_image_encoder(sd, cfg, device="cpu", dtype=torch.float32)
+        cpu = SamFeatureExtractor(encoder, batch_size=2).extract(stack)
+        agree = _pyramid_agreement(gpu["backbone_fpn"], cpu["backbone_fpn"])
+        log("sam-ref", f"2x512x512 slices, Hiera {width}-wide (1 head of {width} per stage), GPU "
+            "bf16 vs CPU f32 per FPN level: " + ", ".join(
+                f"level {i} cos {c:.6f} rel L2 {r:.4g}" for i, (c, r) in enumerate(agree))
+            + f" (limits cos >= 0.9995, rel <= 0.03); launches {counts}")
+        # the encodings pass through the compute dtype: bf16 on the GPU, then fp16
+        pos_equal = all(
+            np.array_equal(p[0], torch.from_numpy(sine_position_encoding(*p.shape[2:], cfg.d_model)
+                                                  .copy()).to(torch.bfloat16).to(torch.float16)
+                           .permute(2, 0, 1).numpy())
+            for p in gpu["vision_pos_enc"]
+        )
+        checks.update({
+            f"width {width}: every level within the limits":
+                all(c >= 0.9995 and r <= 0.03 for c, r in agree),
+            f"width {width}: each Hiera kernel launched once":
+                all(counts[k] == 1 for k in SAM_BATCH_LAUNCHES),
+            f"width {width}: position encodings, the f32 sine table through bf16 and fp16":
+                pos_equal,
+        })
     _report_checks(checks, "SAM reference")
-    return counts
 
 
-def sam_serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
-    """``features --use-sam``'s extractor on a 64×512×512 tomogram at
-    Hiera-L full width (``SAM2Config.large()``, seeded weights), bf16, slice
-    batch 64."""
+def sam_serving_phase(dev: torch.device, workdir: Path, tiny: bool = False) -> dict[str, int]:
+    """``features --use-sam``'s extractor on a 64×512×512 tomogram at full
+    width, seeded weights, bf16, slice batch 64: Hiera-L
+    (``SAM2Config.large()``, ``run_sam``'s default) with a profile of one
+    batch, or with ``tiny`` Hiera-T (``SAM2Config.medsam_tiny()``, MedSAM's
+    trunk: three global blocks of 4 heads of 96) with its last-stage window
+    set to ``HIERA_T_LAST_WINDOW``."""
     import importlib.util
 
     import numpy as np
@@ -964,17 +1028,24 @@ def sam_serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     )
 
     name = torch.cuda.get_device_name(0)
+    cfg, label = SAM2Config.large(), "Hiera-L"
+    if tiny:
+        t = SAM2Config.medsam_tiny()
+        cfg = dataclasses.replace(t, hiera=dataclasses.replace(
+            t.hiera, window_spec=(*t.hiera.window_spec[:-1], HIERA_T_LAST_WINDOW)))
+        label = f"Hiera-T (last-stage window {HIERA_T_LAST_WINDOW})"
+    batch_launches = SAM_T_BATCH_LAUNCHES if tiny else SAM_BATCH_LAUNCHES
     rng = np.random.default_rng(12)
-    tomo_dir = workdir / "sam_tomograms"
+    tomo_dir = workdir / f"sam_tomograms_{'t' if tiny else 'l'}"
     tomo_dir.mkdir()
     write_mrc(tomo_dir / "synthetic.mrc", rng.integers(0, 256, size=(DEPTH, SIDE, SIDE), dtype=np.uint8))
     files = load_files_from_path(tomo_dir)
 
     t0 = time.perf_counter()
-    encoder = load_sam_encoder(random_init=True, device=dev)
+    encoder = load_sam_encoder(random_init=True, cfg=cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in encoder.parameters())
-    log("sam", f"SAM2 Hiera-L + FPN ({n_params / 1e6:.1f} M params, "
+    log("sam", f"SAM2 {label} + FPN ({n_params / 1e6:.1f} M params, "
         f"{encoder.trunk.blocks[0].attn.qkv.weight.dtype}) built in {time.perf_counter() - t0:.1f} s")
     extractor = SamFeatureExtractor(encoder, batch_size=SLICE_BATCH)
     extractor.extract(np.zeros((8, SIDE, SIDE), np.float32))  # warm-up (one padded batch)
@@ -989,12 +1060,13 @@ def sam_serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     batches = -(-DEPTH // SLICE_BATCH)
-    want_counts = {k: (n * batches if k in SAM_BATCH_LAUNCHES else 0)
-                   for k, n in {**dict.fromkeys(kernels.KERNELS, 0), **SAM_BATCH_LAUNCHES}.items()}
-    log("sam", f"SAM2 extraction: {DEPTH} slices in {t_feat:.3f} s = {DEPTH / t_feat:.2f} "
-        f"slices/s, MRC read and fp16 pyramids back on the host included ({name})")
-    log("sam", f"peak device memory {peak / 2**30:.2f} GiB ({name})")
-    log("sam", f"launches during the SAM serving path: {counts}")
+    want_counts = {k: (n * batches if k in batch_launches else 0)
+                   for k, n in {**dict.fromkeys(kernels.KERNELS, 0), **batch_launches}.items()}
+    log("sam", f"SAM2 {label} extraction: {DEPTH} slices in {t_feat:.3f} s = "
+        f"{DEPTH / t_feat:.2f} slices/s, MRC read and fp16 pyramids back on the host included "
+        f"({name})")
+    log("sam", f"{label}: peak device memory {peak / 2**30:.2f} GiB ({name})")
+    log("sam", f"launches during the {label} serving path: {counts}")
     shapes = [(DEPTH, 256, SIDE // s, SIDE // s) for s in (4, 8, 16)]
     fpn, pos = feats["backbone_fpn"], feats["vision_pos_enc"]
     checks = {
@@ -1009,22 +1081,25 @@ def sam_serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     }
     log("sam", "backbone_fpn std per level " + " ".join(
         f"{f.astype(np.float32).std():.4f}" for f in fpn))
-    _profile(lambda: extractor.extract(volume[:SLICE_BATCH]), f"one {SLICE_BATCH}-slice SAM2 batch",
-             SAM_PROFILE_GROUPS, "elementwise, norms, softmax, copies on the device", name, top=15)
-    _report_checks(checks, "SAM serving path")
+    if not tiny:
+        _profile(lambda: extractor.extract(volume[:SLICE_BATCH]),
+                 f"one {SLICE_BATCH}-slice SAM2 batch", SAM_PROFILE_GROUPS,
+                 "elementwise, norms, softmax, copies on the device", name, top=15)
+    _report_checks(checks, f"SAM {label} serving path")
     if importlib.util.find_spec("h5py") is None:
         log("sam", "h5py is not installed here: save_feature_hdf (run_sam's writer) is not run; "
             "the pyramids above come from extract_sam_features, the step right below it")
     else:
-        save_feature_hdf({"data": volume}, feats, f"{path.stem}.hdf", workdir / "sam_features")
-        log("sam", f"wrote sam_features/{path.stem}.hdf")
+        out_dir = f"sam_features_{'t' if tiny else 'l'}"
+        save_feature_hdf({"data": volume}, feats, f"{path.stem}.hdf", workdir / out_dir)
+        log("sam", f"wrote {out_dir}/{path.stem}.hdf")
     del encoder, extractor
     torch.cuda.empty_cache()
     return counts
 
 
 SAM_PROFILE_GROUPS = (
-    ("port kernels (window blocks, attention)", ("window_attention", "ln_gemm")),
+    ("port kernels (window blocks, attention)", ("attention_sm90", "ln_gemm")),
     ("cuBLAS / cuDNN (XLA-path projections, patch embed, FPN)",
      ("xmma", "cutlass", "nvjet", "gemm", "cudnn", "implicit", "conv")),
     ("host <-> device copies", ("Memcpy",)),
@@ -1131,14 +1206,14 @@ DINO_PROFILE_GROUPS = (
     ("residual_layernorm (fused residual + LayerScale + LayerNorm)", ("residual_layernorm",)),
     ("LayerNorm (F.layer_norm)", ("layer_norm",)),
     ("LayerScale + residual (addcmul)", ("addcmul",)),
-    ("port attention kernel", ("flash_attention",)),
+    ("port attention kernel", ("flash_attention", "attention_sm90")),
     ("cuBLAS projections", ("xmma", "cutlass", "nvjet", "gemm", "sm90_")),
 )
 
 
 INT8_PROFILE_GROUPS = (
     ("int8 scale pre-pass", ("attention_int8_scales",)),
-    ("port attention kernel", ("flash_attention",)),
+    ("port attention kernel", ("flash_attention", "attention_sm90")),
     *DINO_PROFILE_GROUPS[:3],
     DINO_PROFILE_GROUPS[4],
 )
@@ -1469,7 +1544,7 @@ def _kernel_names(build_log: str):
     kernel = ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"((?:attention_int8_scales|flash_attention"
+            m = re.search(r"((?:attention_int8_scales|attention_sm90|flash_attention"
                           r"|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
                           r"|sum_partials|window_attention|ln_gemm|residual_layernorm)_kernel)"
                           r"(I(?:L[ib]\d+E)+E)?",
@@ -1507,14 +1582,20 @@ def main() -> int:
         serving = serving_phase(dev, Path(tmp))
         training = training_phase(dev, Path(tmp))
         sam = sam_serving_phase(dev, Path(tmp))
+        sam_t = sam_serving_phase(dev, Path(tmp), tiny=True)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": serving[name] + training[name] + sam[name],
+         "launches": serving[name] + training[name] + sam[name] + sam_t[name],
          **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
+    # the same kernel at Hiera-T's global shape (4 heads of 96), its launches
+    # those of the Hiera-T batch
+    row_t = results["window_attention hiera_t"]
+    next(r for r in report["kernels"] if r["name"] == "window_attention")["hiera_t"] = {
+        "launches": sam_t["window_attention"], **{k: row_t[k] for k in keys}}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

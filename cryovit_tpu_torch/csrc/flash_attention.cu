@@ -1,28 +1,17 @@
-// Non-causal multi-head attention for DINOv2 on Hopper (sm_90a).
+// The int8 internals of the DINOv2 pair attention on Hopper (sm_90a).
 //
-// Replaces the Pallas kernels of cryovit_tpu/ops/flash_attention.py:
-// - _flash_kernel_paired (flash_attention_pairs, channel_major=True), entry
-//   cryovit_flash_attention: q/k/v biases added inside, keys at or past
-//   kv_len masked, the denominator summed from the bf16 probabilities;
-// - its quant= modes, the int8 branches on its single-K-block path (the K
-//   and V quantization :386-420, the int8 Q.K^T :445-457, the int8 P.V
-//   :486-498), entries cryovit_attention_int8_scales (a pre-pass writing
-//   the int8 scales) and cryovit_flash_attention_int8;
-// - _flash_kernel (flash_attention_bhnd on (B, H, N, D) and flash_attention
-//   on (B, N, H, D)), entry cryovit_flash_attention_strided: no bias, the
-//   denominator summed from the f32 probabilities before they are rounded
-//   to bf16 for P.V, as _flash_kernel sums them (flash_attention.py:81-84).
-// One attention body serves all of them, templated on <has_bias,
-// f32_row_sum, mode> (mode bits: 1 int8 Q.K^T, 2 int8 P.V).
+// Replaces the quant= modes of cryovit_tpu/ops/flash_attention.py:
+// _flash_kernel_paired (flash_attention_pairs, channel_major=True): the int8
+// branches on its single-K-block path (the K and V quantization :386-420,
+// the int8 Q.K^T :445-457, the int8 P.V :486-498), entries
+// cryovit_attention_int8_scales (a pre-pass writing the int8 scales) and
+// cryovit_flash_attention_int8; the body is templated on mode (bits: 1
+// int8 Q.K^T, 2 int8 P.V). The bf16 attention of the same TPU kernel (and
+// of _flash_kernel and the Hiera global blocks) is csrc/attention_sm90.cu.
 //
 // What it computes, per (batch b, head h):
 //   out[b, h, i, :] = softmax_j(scale * (q_i + bq) . (k_j + bk)) (v_j + bv)
-// over keys j < kv_len. Every tensor is addressed by its own (batch, head,
-// token) strides in elements with a unit column stride, so q/k/v may be
-// column views of one fused (B, N, 3*H*64) projection output (row 1) or
-// permuted head-major views of one (B, N, 3, H, 64) output (rows 2/3), and
-// the output may be written in (B, N, H, 64) memory: no transposes on either
-// side. The int8 modes, with q/k/v + bias rounded to bf16:
+// over keys j < kv_len, with q/k/v + bias rounded to bf16 and, by mode:
 //   qk: s_ij = f32(sum qi.ki) * ((sq[chunk(i)] * sk) * scale*log2 e), with
 //       qi = round(q_i / sq), ki = round(k_j / sk) (int8, half to even);
 //   pv: m_i = max_j s_ij exactly (first pass), p = bf16(2^(s - m)),
@@ -32,10 +21,12 @@
 //       1/127, int8 value 127), so it sums the same quantized probabilities
 //       as the numerator;
 //   qk alone: the online softmax, bf16 probabilities and row sums.
-// A q chunk holds chunk_rows consecutive rows from row 0 (the TPU kernel's
-// automatic q chunk: a scale group, not a tile here). The TPU kernel pads q
-// with zeros to whole chunks and adds the bias, so rows from seq up to the
-// last chunk's end enter its scale as |b_q|.
+// q, k and v are column views of one fused (B, N, 3*H*64) projection output
+// (row and batch strides in elements, unit column stride); the output is a
+// contiguous (B, N, H*64). A q chunk holds chunk_rows consecutive rows from
+// row 0 (the TPU kernel's automatic q chunk: a scale group, not a tile
+// here). The TPU kernel pads q with zeros to whole chunks and adds the bias,
+// so rows from seq up to the last chunk's end enter its scale as |b_q|.
 //
 // What bounds it on the H100: at ViT-g's slices (N = 1029 at 512^2, 4101 at
 // 1024^2; d = 64) the two products Q.K^T and P.V are 2*N^2*d operations
@@ -49,35 +40,33 @@
 //   row sum and the 16 x 64 f32 output accumulator in registers;
 // - keys stream through shared memory in tiles of 64 (K row-major, V stored
 //   transposed so both products read 32-bit fragment pairs);
-// - the bf16 products are mma.sync m16n8k16 with f32 accumulation, the int8
-//   ones m16n8k32 s8 x s8 -> s32 (exact, so the kernel and its plain
-//   version differ only through exp2 and f32 order); the score accumulator
-//   is re-packed in registers as the A operand of P.V (the FlashAttention-2
-//   register layout), so scores never leave the SM; for the int8 P.V the
-//   keys of each 32-key step are permuted, and V^T is stored with that
-//   permutation, so A and B agree on the order of the sum;
+// - the int8 products are mma.sync m16n8k32 s8 x s8 -> s32 (exact, so the
+//   kernel and its plain version differ only through exp2 and f32 order),
+//   a bf16 product (mode pv's Q.K^T) m16n8k16 with f32 accumulation; the
+//   score accumulator is re-packed in registers as the A operand of P.V
+//   (the FlashAttention-2 register layout), so scores never leave the SM;
+//   for the int8 P.V the keys of each 32-key step are permuted, and V^T is
+//   stored with that permutation, so A and B agree on the order of the sum;
 // - softmax in the log2 domain: scores are multiplied by scale*log2(e) and
 //   exponentiated with exp2f, with the row-max shift kept;
-// - with has_bias, the q/k/v biases are added while the tiles are staged in
-//   shared memory (rounded to bf16, as the TPU kernel adds them in bf16);
-//   keys at or past kv_len are masked to -inf after the bias, and their V
-//   rows are zeroed, so the ragged tail needs no padding by the caller;
-// - the int8 modes' scales come first, from one small pre-pass (one block
-//   per (batch, head) for sk and sv, one per q chunk for sq), so every
-//   block knows its scales before its first key tile and its tiles need not
-//   line up with the chunks; q, k and v are quantized while they are staged
-//   into shared memory (as the TPU kernel does in VMEM): no int8 copy goes
-//   to device memory;
+// - the q/k/v biases are added while the tiles are staged in shared memory
+//   (rounded to bf16, as the TPU kernel adds them in bf16); keys at or past
+//   kv_len are masked to -inf after the bias, and their V rows are zeroed,
+//   so the ragged tail needs no padding by the caller;
+// - the scales come first, from one small pre-pass (one block per (batch,
+//   head) for sk and sv, one per q chunk for sq), so every block knows its
+//   scales before its first key tile and its tiles need not line up with
+//   the chunks; q, k and v are quantized while they are staged into shared
+//   memory (as the TPU kernel does in VMEM): no int8 copy goes to device
+//   memory;
 // - without int8 P.V, an online softmax; the probabilities are rounded to
 //   bf16 once for P.V, and the denominator is the row sum of those rounded
-//   values (row 1: the TPU kernel gets it from a ones column appended to V)
-//   or, with f32_row_sum, of the f32 values before the rounding (rows 2/3);
+//   values (the TPU kernel gets it from a ones column appended to V);
 // - with int8 P.V, two passes over the keys: the first takes the exact row
 //   max, the second recomputes the scores and quantizes p. An online
 //   softmax would rescale partial sums of already rounded probabilities.
-// Not yet done (later work): wgmma, TMA, a multi-stage cp.async pipeline,
-// ldmatrix fragment loads, keeping K in shared memory across both int8
-// passes.
+// Not yet done (later work): the wgmma + TMA design of attention_sm90.cu,
+// keeping K in shared memory across both int8 passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -157,13 +146,11 @@ __device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4],
 }
 
 // Loads 8 consecutive bf16 of one row (zeros when the row is out of range)
-// and, with kHasBias, adds 8 bias values, rounding the sum to bf16.
-template <bool kHasBias>
+// and adds 8 bias values, rounding the sum to bf16.
 __device__ __forceinline__ Vec8 load_row8(const __nv_bfloat16* src, bool valid,
                                           const __nv_bfloat16* bias) {
   Vec8 in, out;
   in.u = valid ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-  if (!kHasBias) return in;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     out.h[j] = __float2bfloat16(__bfloat162float(in.h[j]) +
@@ -204,9 +191,8 @@ __device__ __forceinline__ int pv_slot(int r) {
   return (r & 32) + ((m >> 1) << 4) + (t << 2) + ((m & 1) << 1) + e;
 }
 
-// bias: (3, heads*64) bf16 rows q, k, v; read only with kHasBias (every
-// int8 mode has it).
-template <bool kHasBias, bool kF32RowSum, int kMode>
+// bias: (3, heads*64) bf16 rows q, k, v.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -270,7 +256,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = tid; c < kBlockQ * kHeadDim / 8; c += kThreads) {
     const int r = c >> 3, col = (c & 7) * 8;
     const int row = q0 + r;
-    const Vec8 val = load_row8<kHasBias>(qh + row * st.q.n + col, row < seq, bq + col);
+    const Vec8 val = load_row8(qh + row * st.q.n + col, row < seq, bq + col);
     if constexpr (kIntQK) {
       const float inv = row < seq ? inv_scale(sq_bh[row / sc.chunk_rows]) : 0.f;
       *reinterpret_cast<uint2*>(sQ + r * kRowQK + col) = quant8(val, inv);
@@ -300,7 +286,7 @@ __global__ void __launch_bounds__(kThreads)
       const int r = c >> 3, col = (c & 7) * 8;
       const int key = key0 + r;
       const bool valid = key < kv_len;
-      const Vec8 kv = load_row8<kHasBias>(kh + key * st.k.n + col, valid, bk + col);
+      const Vec8 kv = load_row8(kh + key * st.k.n + col, valid, bk + col);
       if constexpr (kIntQK) {
         *reinterpret_cast<uint2*>(sK + r * kRowQK + col) =
             valid ? quant8(kv, inv_sk) : make_uint2(0, 0);
@@ -308,7 +294,7 @@ __global__ void __launch_bounds__(kThreads)
         *reinterpret_cast<uint4*>(sK + r * kRowQK + col * 2) = kv.u;
       }
       if (!with_v) continue;
-      const Vec8 vv = load_row8<kHasBias>(vh + key * st.v.n + col, valid, bv + col);
+      const Vec8 vv = load_row8(vh + key * st.v.n + col, valid, bv + col);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if constexpr (kIntPV) {
@@ -466,15 +452,14 @@ __global__ void __launch_bounds__(kThreads)
       }
 
       // P = exp2(S - m), rounded to bf16 once for the P.V product; the row
-      // sum adds the rounded values or, with kF32RowSum, the f32 ones.
+      // sum adds the rounded values.
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float e = exp2f(s[nt][i] - m_run[i >> 1]);
-          const float p = round_bf16(e);
+          const float p = round_bf16(exp2f(s[nt][i] - m_run[i >> 1]));
           s[nt][i] = p;
-          l_run[i >> 1] += kF32RowSum ? e : p;
+          l_run[i >> 1] += p;
         }
       }
 
@@ -520,13 +505,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kHasBias, bool kF32RowSum, int kMode = 0>
+template <int kMode>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int batch, int seq, int heads, const AttnStrides& st,
            int kv_len, float scale_log2, void* stream,
-           const Int8Scales& sc = Int8Scales{}) {
+           const Int8Scales& sc) {
   dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_attention_kernel<kHasBias, kF32RowSum, kMode>
+  flash_attention_kernel<kMode>
       <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
           (const __nv_bfloat16*)v, (const __nv_bfloat16*)bias,
@@ -584,12 +569,12 @@ __global__ void __launch_bounds__(kScaleThreads)
     float kmax = 0.f, vmax[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int key = r0; key < kv_len; key += kRowsPerStep) {
       if (mode & kModeQK) {
-        const Vec8 kv = load_row8<true>(k + base + key * row_stride, true, bk);
+        const Vec8 kv = load_row8(k + base + key * row_stride, true, bk);
 #pragma unroll
         for (int j = 0; j < 8; ++j) kmax = fmaxf(kmax, fabsf(__bfloat162float(kv.h[j])));
       }
       if (mode & kModePV) {
-        const Vec8 vv = load_row8<true>(v + base + key * row_stride, true, bv);
+        const Vec8 vv = load_row8(v + base + key * row_stride, true, bv);
 #pragma unroll
         for (int j = 0; j < 8; ++j) vmax[j] = fmaxf(vmax[j], fabsf(__bfloat162float(vv.h[j])));
       }
@@ -614,7 +599,7 @@ __global__ void __launch_bounds__(kScaleThreads)
   float qmax = 0.f;
   for (int row = chunk * chunk_rows + r0; row < (chunk + 1) * chunk_rows;
        row += kRowsPerStep) {
-    const Vec8 qv = load_row8<true>(q + base + row * row_stride, row < seq, bq);
+    const Vec8 qv = load_row8(q + base + row * row_stride, row < seq, bq);
 #pragma unroll
     for (int j = 0; j < 8; ++j) qmax = fmaxf(qmax, fabsf(__bfloat162float(qv.h[j])));
   }
@@ -623,37 +608,6 @@ __global__ void __launch_bounds__(kScaleThreads)
 }
 
 }  // namespace
-
-// Row 1. q, k, v: (batch, seq, heads*64) bf16 with unit column stride and
-// the given row and batch strides (in elements); bias: (3, heads*64) bf16
-// (q, k, v); out: contiguous (batch, seq, heads*64) bf16. Keys >= kv_len are
-// excluded. scale_log2 = softmax scale * log2(e). Returns cudaGetLastError().
-extern "C" int cryovit_flash_attention(const void* q, const void* k,
-                                       const void* v, const void* bias,
-                                       void* out, int batch, int seq, int heads,
-                                       long long row_stride,
-                                       long long batch_stride, int kv_len,
-                                       float scale_log2, void* stream) {
-  return launch<true, false>(q, k, v, bias, out, batch, seq, heads,
-                             channel_major(seq, heads, row_stride, batch_stride),
-                             kv_len, scale_log2, stream);
-}
-
-// Rows 2/3. q, k, v, out: (batch, heads, seq, 64) bf16 operands with unit
-// column stride; strides holds, in elements, the (batch, head, token) strides
-// of q, k, v and out in that order (12 values). No bias, no masking (every
-// key is attended). Returns cudaGetLastError().
-extern "C" int cryovit_flash_attention_strided(const void* q, const void* k,
-                                               const void* v, void* out,
-                                               int batch, int seq, int heads,
-                                               const long long* strides,
-                                               float scale_log2, void* stream) {
-  const long long* s = strides;
-  const AttnStrides st{Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]},
-                       Strides{s[6], s[7], s[8]}, Strides{s[9], s[10], s[11]}};
-  return launch<false, true>(q, k, v, nullptr, out, batch, seq, heads, st, seq,
-                             scale_log2, stream);
-}
 
 // Scales of the int8 modes (mode bits: 1 qk, 2 pv). q, k, v: (batch, seq,
 // heads*64) bf16 with unit column stride and the given row and batch strides
@@ -690,13 +644,13 @@ extern "C" int cryovit_flash_attention_int8(
                       chunk_rows, chunks};
   switch (mode) {
     case kModeQK:
-      return launch<true, false, kModeQK>(q, k, v, bias, out, batch, seq, heads,
+      return launch<kModeQK>(q, k, v, bias, out, batch, seq, heads,
                                           st, kv_len, scale_log2, stream, sc);
     case kModePV:
-      return launch<true, false, kModePV>(q, k, v, bias, out, batch, seq, heads,
+      return launch<kModePV>(q, k, v, bias, out, batch, seq, heads,
                                           st, kv_len, scale_log2, stream, sc);
     case kModeQK | kModePV:
-      return launch<true, false, kModeQK | kModePV>(q, k, v, bias, out, batch,
+      return launch<kModeQK | kModePV>(q, k, v, bias, out, batch,
                                                     seq, heads, st, kv_len,
                                                     scale_log2, stream, sc);
     default:

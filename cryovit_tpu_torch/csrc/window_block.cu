@@ -5,7 +5,7 @@
 // - cryovit_tpu/ops/window_attention.py:window_block_attention (Pallas kernel
 //   _wkb_kernel): out = x + proj(MHA(qkv(LN1(x)))) per window, as three
 //   launches: [LN1 -> qkv + bias] into a bf16 (rows, 3*H*D) scratch, the
-//   attention of csrc/window_attention.cu on column views of it into a bf16
+//   attention of csrc/attention_sm90.cu on column views of it into a bf16
 //   (rows, H*D) scratch, and [proj + bias + x];
 // - window_block_mlp (_wmlp_kernel): out = x + fc2(GELU(fc1(LN2(x)))) per
 //   token, as two launches: [LN2 -> fc1 + bias -> erf GELU] into a bf16

@@ -1,5 +1,6 @@
-"""Multi-head attention for DINOv2, on one Hopper kernel
-(``csrc/flash_attention.cu``) with three wrappers.
+"""Multi-head attention for DINOv2, on one Hopper kernel body
+(``csrc/attention_sm90.cu``: wgmma products on TMA-loaded tiles, shared with
+the Hiera global attention) with three wrappers.
 
 - :func:`flash_attention`: counterpart of
   ``cryovit_tpu/ops/flash_attention.py:flash_attention_pairs`` in its
@@ -24,7 +25,7 @@ other device. The TPU block sizes (``block_q``, ``block_k``) and
 
 :func:`flash_attention`'s ``quant`` modes (``"qk"``, ``"pv"``, ``"qkpv"``)
 are the JAX ``flash_attention_pairs(quant=...)`` int8 internals, run by the
-same kernel body with int8 products (``csrc/flash_attention.cu``, entry
+``mma.sync`` body with int8 products (``csrc/flash_attention.cu``, entry
 ``cryovit_flash_attention_int8``) after a scale pre-pass
 (:func:`attention_int8_scales`). Their q scales are taken per
 chunk of q rows whose height is the TPU kernel's automatic chunk
@@ -294,7 +295,9 @@ def _check_cuda_args(q, k, v, bias, num_heads, kv_len) -> None:
     if k.stride() != q.stride() or v.stride() != q.stride():
         raise ValueError("q, k and v must share strides")
     if q.stride(2) != 1 or q.stride(1) % 8 or q.stride(0) % 8 or q.stride(1) < c:
-        raise ValueError(f"unsupported q/k/v strides {q.stride()}")
+        raise ValueError(f"unsupported q/k/v strides {q.stride()}: the kernels (TMA loads in "
+                         "bf16) need a unit column stride and row and batch strides that are "
+                         "multiples of 8")
     if tuple(bias.shape) != (3, c) or not bias.is_contiguous():
         raise ValueError(f"bias must be a contiguous (3, {c}) tensor, got {tuple(bias.shape)}")
     if not 1 <= kv_len <= n:
@@ -317,10 +320,11 @@ def flash_attention(
 
     On a CUDA device the Hopper kernel runs: bf16 q/k/v/bias, head dim 64,
     q/k/v sharing strides with a unit column stride (views of one fused qkv
-    output qualify). A ``quant`` mode runs :func:`attention_int8_scales`
-    and then the int8 kernel, up to the single-key-block limit of
-    :func:`q_chunk_rows`. Anything they cannot take raises; they never fall
-    back."""
+    output qualify) and, for its TMA loads, 16-byte aligned bases and row
+    and batch strides that are multiples of 8. A ``quant`` mode runs
+    :func:`attention_int8_scales` and then the int8 kernel, up to the
+    single-key-block limit of :func:`q_chunk_rows`. Anything they cannot
+    take raises; they never fall back."""
     _check_quant(quant)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, num_heads, true_len, scale, quant)
@@ -437,8 +441,8 @@ def _check_bhnd_args(q, k, v) -> None:
             raise TypeError(f"the attention kernel takes bf16; {name} is {t.dtype}")
         if t.data_ptr() % 16 or t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError(
-                f"{name} needs 16-byte aligned rows (unit last stride, the others multiples "
-                f"of 8): strides {t.stride()}"
+                f"{name} needs 16-byte aligned rows for TMA (unit last stride, the others "
+                f"multiples of 8): strides {t.stride()}"
             )
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -473,9 +477,10 @@ def flash_attention_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     """Attention on head-major ``(B, H, N, D)`` q, k, v →
     ``(B, H, N, D)``, as :func:`flash_attention_bhnd_reference` computes it.
 
-    On a CUDA device the Hopper kernel runs: bf16, head dim 64, any strides
-    with a unit last stride and 16-byte aligned rows (permuted views of one
-    ``(B, N, 3, H, D)`` projection qualify, and are not copied). The result
+    On a CUDA device the Hopper kernel runs: bf16, head dim 64, strides that
+    TMA takes (a unit last stride, the others multiples of 8, 16-byte
+    aligned bases; permuted views of one ``(B, N, 3, H, D)`` projection
+    qualify, and are not copied). The result
     is a ``(B, H, N, D)`` view of ``(B, N, H, D)`` memory, so
     ``out.transpose(1, 2).reshape(B, N, H·D)`` is free. Anything the kernel
     cannot take raises; it never falls back."""

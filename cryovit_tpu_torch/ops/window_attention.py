@@ -11,19 +11,22 @@ of the qkv projection, in f32 before the weights are cast to bf16.
 
 - :func:`window_block_attention`: ``x + proj(MHA(qkv(LN(x))))`` per window
   of ``(N, T, C)`` tokens (``csrc/window_block.cu`` +
-  ``csrc/window_attention.cu`` on a GPU).
+  ``csrc/attention_sm90.cu`` on a GPU).
 - :func:`window_block_mlp`: ``x + fc2(GELU(fc1(LN(x))))`` per token
   (``csrc/window_block.cu``).
 - :func:`window_attention`: ``softmax(q kᵀ) v`` per (batch, head), for the
-  global blocks (``csrc/window_attention.cu``).
+  global blocks (``csrc/attention_sm90.cu``, the wgmma + TMA body shared
+  with the DINOv2 attention).
 
 Each wrapper runs its plain version (``*_reference``) for CPU tensors and
 launches its kernel for CUDA tensors, or raises. The plain versions follow
-the kernels' recipe: LayerNorm with f32 statistics and the variance as
+the TPU kernels' recipe: LayerNorm with f32 statistics and the variance as
 E[x²] − mean², output rounded to the input dtype; products accumulated in
 f32 and rounded once; attention with the exact f32 row max of the scores
 (already in the log2 domain), bf16 probabilities ``exp2(bf16(s − m))`` and
-their f32 sum as the denominator; exact (erf) GELU in f32.
+their f32 sum as the denominator; exact (erf) GELU in f32. The CUDA
+attention takes the row max online, in one pass over the keys: the same
+function, with the probabilities rounded against the running max.
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ __all__ = [
     "window_block_mlp_reference",
 ]
 
-HEAD_DIMS = (72,)  # head widths the CUDA attention kernel is built for
+# head widths the CUDA attention kernel is built for: 72 (sam2.1_hiera_l),
+# 96 (Hiera-T's global blocks, SAM2Config.medsam_tiny())
+HEAD_DIMS = (72, 96)
 LOG2E = 1.4426950408889634
 
 
@@ -277,7 +282,9 @@ def window_attention(
 
     On a CUDA device: bf16 q/k/v sharing strides with a unit column stride
     (views of one fused qkv output qualify), head dim in :data:`HEAD_DIMS`;
-    anything else raises.
+    the kernel loads them by TMA, which takes 16-byte aligned bases and row
+    and batch strides that are multiples of 8 elements. Anything else
+    raises.
     """
     if _device_of(q, "attention") == "cpu":
         return window_attention_reference(q, k, v, heads)
@@ -290,11 +297,12 @@ def window_attention(
             raise ValueError(f"the attention kernel takes bf16 on one device; {name} is "
                              f"{tensor.dtype} on {tensor.device}")
         if tensor.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+            raise ValueError(f"{name} must be 16-byte aligned (TMA)")
         if tensor.stride() != q.stride():
             raise ValueError("q, k and v must share strides")
     if q.stride(2) != 1 or q.stride(1) % 8 or q.stride(0) % 8 or q.stride(1) < c:
-        raise ValueError(f"unsupported q/k/v strides {q.stride()}")
+        raise ValueError(f"unsupported q/k/v strides {q.stride()}: TMA needs a unit column "
+                         "stride and row and batch strides that are multiples of 8")
     if b > 65535 or heads > 65535:
         raise ValueError("batch and heads must each be at most 65535")
     lib = kernels.load_library()

@@ -57,8 +57,12 @@ def row_rms(got, want, width=fa.HEAD_DIM):
     return ((got - want).norm(dim=1) / want.norm(dim=1)).square().mean().sqrt().item()
 
 
-@pytest.mark.parametrize("b,n,heads,true_len", [(2, 37, 2, None), (3, 130, 4, 101), (1, 1029, 24, None)])
+@pytest.mark.parametrize("b,n,heads,true_len", [
+    (2, 37, 2, None), (3, 130, 4, 101), (1, 1029, 24, None), (1, 4101, 2, None), (2, 4101, 2, 3999),
+])
 def test_attention_kernel_matches_plain(cuda, b, n, heads, true_len):
+    """Column views of one projection, biases, ragged N and keys past
+    true_len masked (ViT-g at 1024²: 4101 tokens)."""
     c = heads * fa.HEAD_DIM
     qkv = _randn(cuda, b, n, 3 * c)
     q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
@@ -204,11 +208,13 @@ def _block_params(dev, c, f, c_out, seed=1):
     )
 
 
-@pytest.mark.parametrize("n,t,heads", [(3, 256, 8), (5, 144, 1), (2, 200, 2)])
-def test_window_block_attention_kernel_matches_plain(cuda, n, t, heads):
+@pytest.mark.parametrize("n,t,heads,d", [(3, 256, 8, 72), (5, 144, 1, 72), (2, 200, 2, 72),
+                                        (3, 256, 4, 96), (2, 77, 1, 96)])
+def test_window_block_attention_kernel_matches_plain(cuda, n, t, heads, d):
     """Hiera-L's stage-3 block width (8 x 72) at 256-token windows, one head
-    of 72, and token counts that leave ragged row, query and key tiles."""
-    c = heads * 72
+    of 72, head width 96, and token counts that leave ragged row, query and
+    key tiles."""
+    c = heads * d
     x = _randn(cuda, n, t, c)
     ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj = _block_params(cuda, c, 3 * c, c)
     params = (ln_w, ln_b, *wa.fold_q_scale(w_qkv, b_qkv, heads), w_proj, b_proj)
@@ -223,13 +229,15 @@ def test_window_block_mlp_kernel_matches_plain(cuda, n, t, c):
     _close(wa.window_block_mlp(x, *params), wa.window_block_mlp_reference(x, *params))
 
 
-@pytest.mark.parametrize("b,t,heads", [(2, 1024, 8), (3, 200, 1), (1, 77, 2)])
-def test_window_attention_kernel_matches_plain(cuda, b, t, heads):
+@pytest.mark.parametrize("b,t,heads,d", [(2, 1024, 8, 72), (3, 200, 1, 72), (1, 77, 2, 72),
+                                        (2, 1024, 4, 96), (3, 200, 1, 96), (1, 77, 2, 96)])
+def test_window_attention_kernel_matches_plain(cuda, b, t, heads, d):
     """q (pre-scaled), k and v as column views of one (B, T, 3C)
-    projection, as the global blocks pass them."""
-    c = heads * 72
+    projection, as the global blocks pass them: Hiera-L's 8 x 72 and
+    Hiera-T's 4 x 96 at 1024 tokens, and ragged T."""
+    c = heads * d
     qkv = _randn(cuda, b, t, 3 * c)
-    qkv[..., :c] *= 72**-0.5 * wa.LOG2E
+    qkv[..., :c] *= d**-0.5 * wa.LOG2E
     q, k, v = qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :]
     _close(wa.window_attention(q, k, v, heads), wa.window_attention_reference(q, k, v, heads))
 
@@ -403,6 +411,12 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     shifted = torch.zeros(qh.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(qh.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_bhnd(shifted, qh, qh)
+    # a token stride of 68 elements (136 bytes): TMA takes multiples of 16 bytes
+    odd = torch.zeros(1, 2, 5, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.flash_attention_bhnd(odd, qh, qh)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.flash_attention_bnhd(odd.transpose(1, 2), qh.transpose(1, 2), qh.transpose(1, 2))
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_bnhd(qh[..., :32], qh[..., :32], qh[..., :32])
     with pytest.raises(TypeError, match="bf16"):

@@ -49,8 +49,11 @@ GATE_CONFIGS = {
                          window_spec=(16, 4, 4, 2), global_att_blocks=(4,)),
     "global": dict(embed_dim=8, num_heads=1, stages=(2, 1, 1, 1),
                    window_spec=(4, 4, 4, 2), global_att_blocks=(1,)),
+    # head width 96 (Hiera-T's global blocks: 4 heads of 96)
+    "global_96": dict(embed_dim=96, num_heads=1, stages=(2, 1, 1, 1),
+                      window_spec=(4, 4, 4, 2), global_att_blocks=(1,)),
 }
-GATE_CALLS = {"window_block": (2, 2, 0), "global": (0, 0, 1)}  # per forward
+GATE_CALLS = {"window_block": (2, 2, 0), "global": (0, 0, 1), "global_96": (0, 0, 1)}  # per forward
 # no gate: a window (3) that does not tile the 32×32 grid (zero-padded per
 # block) and a run of two windowed blocks in stage 2 (window-persistent)
 HIERA_CONFIGS = {**GATE_CONFIGS, "padded": dict(embed_dim=8, num_heads=1, stages=(2, 3, 2, 1),
