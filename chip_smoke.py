@@ -424,7 +424,7 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
 
     # the backward kernels at the training crop's shapes
     conv_bwd = torch.ops.aten.convolution_backward
-    total = None
+    total, per_shape = None, []
     for ci, co, side, dil in CONV_SHAPES:
         x = randn(1, TRAIN_DEPTH, ci, side, side)
         gy = randn(1, TRAIN_DEPTH, co, side, side)
@@ -446,8 +446,14 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
             f"library {row['library_ms']:.3f} ms (aten.convolution_backward weight, "
             f"channels-first bf16), bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
         total = _accumulate(total, row)
+        per_shape.append({"ci": ci, "co": co, "side": side, "dil": dil, **{
+            k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}})
         del x, gy, x_cf, g_cf
-    results["conv3d_dm_dw"] = total
+    results["conv3d_dm_dw"] = dict(total, shapes=per_shape)
+    log("kernels", f"conv3d_dm_dw per train step (6 calls at {TRAIN_DEPTH}x{SIDE}^2): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms ({total['bound_by']})")
 
     total = None
     for ci, co, side in CONVT_SHAPES:
@@ -1596,6 +1602,9 @@ def main() -> int:
     row_t = results["window_attention hiera_t"]
     next(r for r in report["kernels"] if r["name"] == "window_attention")["hiera_t"] = {
         "launches": sam_t["window_attention"], **{k: row_t[k] for k in keys}}
+    # the weight gradient's six calls of a train step, one by one
+    next(r for r in report["kernels"] if r["name"] == "conv3d_dm_dw")["shapes"] = (
+        results["conv3d_dm_dw"]["shapes"])
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -119,14 +119,14 @@ def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
 
 
-def grid_blocks(device, n_items: int) -> int:
+def grid_blocks(device, n_items: int, per_sm: int = 2) -> int:
     """Blocks for a kernel that strides its blocks over ``n_items`` work
-    items and reduces their partial results afterwards: two per SM, at most
-    one per item."""
+    items and reduces their partial results afterwards: ``per_sm`` per SM,
+    at most one per item."""
     import torch
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(2 * sms, n_items))
+    return max(1, min(per_sm * sms, n_items))
 
 
 def _find_nvcc() -> str:

@@ -151,8 +151,12 @@ def conv3d_dm_dw(
     if g.device != x.device:
         raise ValueError(f"g is on {g.device}, x on {x.device}")
     lib = kernels.load_library()
-    n_items = b * d * -(-h // 8) * -(-w // 32)  # the kernel's 8 x 32 tiles
-    nblocks = kernels.grid_blocks(x.device, n_items)
+    # at most the kernel's work units: (b, depth residue mod dd, segment of
+    # up to 32 planes of that residue's chain, 64-wide tile of 4, 8 or 16
+    # rows); one block per SM, as its 160-224 KB of shared memory allow
+    chain = -(-d // dd)
+    n_units = b * min(dd, d) * -(-chain // 32) * -(-h // 4) * -(-w // 64)
+    nblocks = kernels.grid_blocks(x.device, n_units, per_sm=1)
     partial = torch.empty(nblocks * 27 * ci * co, dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=x.device)
     rc = lib.cryovit_conv3d_dm_dw(

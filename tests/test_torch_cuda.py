@@ -310,15 +310,27 @@ def test_each_launch_counts_once(cuda):
 
 
 @pytest.mark.parametrize(
-    "ci,co,h,w,dil",
-    [(8, 1, 7, 33, 1), (16, 8, 20, 64, 2), (32, 32, 9, 40, 4), (32, 16, 12, 70, 7), (8, 8, 3, 5, 1)],
+    "ci,co,d,h,w,dil",
+    [
+        (8, 1, 5, 7, 33, 1), (16, 8, 5, 20, 64, 2), (32, 32, 5, 9, 40, 4), (32, 16, 5, 12, 70, 7),
+        (8, 8, 5, 3, 5, 1),
+        (1, 8, 5, 6, 64, 1),  # Ci = 1: 7 zero channels in the 8-channel row-pair tile
+        (3, 16, 5, 5, 24, 2),  # Ci = 3; W below one 64-wide tile, a multiple of 8
+        (40, 8, 5, 3, 72, 1),  # Ci > 32: two channel chunks; W past one tile
+        (16, 32, 5, 1, 136, 1),  # H = 1; W a multiple of 8, not of the tile
+        (8, 1, 4, 4, 128, 6),  # dilation 6 >= D = 4
+        (32, 32, 12, 10, 128, 8),  # decoder width: 32 -> 32, dilation 8, 128-wide
+        (8, 8, 70, 2, 64, 1),  # a depth chain of 70 planes: three segments of 32
+    ],
 )
-def test_conv3d_dw_kernel_matches_plain(cuda, ci, co, h, w, dil):
-    """Ragged H and W, depth dilation 7 > D = 5 (only the centre depth tap
-    has planes); f32 sums in another order: within 1e-3·max|plain|, and the
-    same bits on a second run (fixed-order reduction)."""
-    x = _randn(cuda, 2, 5, ci, h, w)
-    g = _randn(cuda, 2, 5, co, h, w, seed=1)
+def test_conv3d_dw_kernel_matches_plain(cuda, ci, co, d, h, w, dil):
+    """Ragged H and W (W % 8 != 0 lands element by element), H = 1, Ci = 1,
+    3 and 40, every Co of KERNEL_COUT, depth dilation >= D (only the centre
+    depth tap has planes); f32 sums in another order: within
+    1e-3·max|plain|, and the same bits on a second run (fixed-order
+    reduction)."""
+    x = _randn(cuda, 2, d, ci, h, w)
+    g = _randn(cuda, 2, d, co, h, w, seed=1)
     got = cd.conv3d_dm_dw(x, g, (dil, 1, 1))
     want = cd.conv3d_dm_dw_reference(x, g, (dil, 1, 1))
     assert got.dtype == torch.float32 and got.shape == (3, 3, 3, ci, co)

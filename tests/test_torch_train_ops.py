@@ -34,12 +34,14 @@ from cryovit_tpu_torch.types import TomogramData
 
 @pytest.mark.parametrize(
     "b,d,ci,co,h,dil",
-    [(1, 4, 8, 1, 3, 1), (1, 5, 16, 8, 2, 2), (2, 5, 8, 16, 2, 4), (1, 3, 8, 8, 2, 5)],
+    [(1, 4, 8, 1, 3, 1), (1, 5, 16, 8, 2, 2), (2, 5, 8, 16, 2, 4), (1, 3, 8, 8, 2, 5),
+     (1, 3, 32, 32, 2, 8), (1, 4, 32, 16, 2, 2)],
 )
 def test_conv3d_dw_plain_matches_pallas_dw_kernel(rng, b, d, ci, co, h, dil):
     """f32 at W = 128 (the Pallas kernel's gate), dilations 1, 2, 4 and
     5 > D = 3 (only the centre depth tap sees planes), 8 → 1 (the mask
-    head) among them; within 1e-4·max|ref|: the same sums in another
+    head) and the decoder's two 32-wide shapes (32 → 32 at dilation 8 > D,
+    32 → 16) among them; within 1e-4·max|ref|: the same sums in another
     order."""
     x = rng.standard_normal((b, d, ci, h, 128)).astype(np.float32)
     g = rng.standard_normal((b, d, co, h, 128)).astype(np.float32)
