@@ -25,7 +25,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    held also by the RMS of each output row's relative error, whose limit
    must fall below the readings of planted faults in the plain version.
    Kernel, plain and library times from CUDA events, and the least time the
-   card could take (``bound_ms``); TFLOP/s on every attention row.
+   card could take (``bound_ms``); TFLOP/s on every attention row. The JSON
+   rows of conv3d_dm (its six serving calls, and under ``train_step`` its
+   twelve train-step calls) and of conv3d_dm_dw (its six) list each call.
 4. reference — the serving path on the GPU (bf16, kernels) against the same
    path on the CPU (f32, plain versions) on a small input, once for each
    DINOv2 configuration: the default, ``pair_heads=False`` and
@@ -378,26 +380,36 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
             f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
         return row
 
-    total = None
+    def shape_entry(row, **shape):  # one call of a kernel row's JSON list
+        return {**shape, **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by")}}
+
+    total, per_shape = None, []
     for ci, co, side, dil in CONV_SHAPES:
         x = randn(1, DEPTH, ci, side, side)
         w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
-        total = _accumulate(total, conv_row(x, w, dil, "forward"))
-    results["conv3d_dm"] = total
+        row = conv_row(x, w, dil, "forward")
+        total = _accumulate(total, row)
+        per_shape.append(shape_entry(row, call="forward", ci=ci, co=co, side=side, dil=dil))
+    results["conv3d_dm"] = dict(total, shapes=per_shape)
 
     # one train step's 12 calls at the training crop: each tail conv forward,
     # and its input gradient, the same kernel on g with the taps flipped and
     # Ci, Co swapped (the mask head's makes Ci = 1)
-    total = None
+    total, per_shape = None, []
     for ci, co, side, dil in CONV_SHAPES:
         w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
         x = randn(1, TRAIN_DEPTH, ci, side, side)
-        total = _accumulate(total, conv_row(x, w, dil, "forward"))
+        row = conv_row(x, w, dil, "forward")
+        total = _accumulate(total, row)
+        per_shape.append(shape_entry(row, call="forward", ci=ci, co=co, side=side, dil=dil))
         gy = randn(1, TRAIN_DEPTH, co, side, side)
         w_dx = w.flip(0, 1, 2).transpose(3, 4).contiguous()
-        total = _accumulate(total, conv_row(gy, w_dx, dil, "input gradient"))
+        row = conv_row(gy, w_dx, dil, "input gradient")
+        total = _accumulate(total, row)
+        per_shape.append(shape_entry(row, call="input gradient", ci=co, co=ci, side=side, dil=dil))
         del x, gy
-    results["conv3d_dm_train_step"] = total
+    results["conv3d_dm_train_step"] = dict(total, shapes=per_shape)
     results["conv3d_dm"]["max_abs_err"] = max(total["max_abs_err"],
                                               results["conv3d_dm"]["max_abs_err"])
     log("kernels", f"conv3d_dm per train step (12 calls at {TRAIN_DEPTH}x{SIDE}^2): kernel "
@@ -446,9 +458,7 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
             f"library {row['library_ms']:.3f} ms (aten.convolution_backward weight, "
             f"channels-first bf16), bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
         total = _accumulate(total, row)
-        per_shape.append({"ci": ci, "co": co, "side": side, "dil": dil, **{
-            k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")}})
+        per_shape.append(shape_entry(row, ci=ci, co=co, side=side, dil=dil))
         del x, gy, x_cf, g_cf
     results["conv3d_dm_dw"] = dict(total, shapes=per_shape)
     log("kernels", f"conv3d_dm_dw per train step (6 calls at {TRAIN_DEPTH}x{SIDE}^2): kernel "
@@ -1602,7 +1612,11 @@ def main() -> int:
     row_t = results["window_attention hiera_t"]
     next(r for r in report["kernels"] if r["name"] == "window_attention")["hiera_t"] = {
         "launches": sam_t["window_attention"], **{k: row_t[k] for k in keys}}
-    # the weight gradient's six calls of a train step, one by one
+    # the conv's six calls of a serving pass and twelve of a train step, and
+    # the weight gradient's six, one by one
+    row4 = next(r for r in report["kernels"] if r["name"] == "conv3d_dm")
+    row4["shapes"] = results["conv3d_dm"]["shapes"]
+    row4["train_step"] = {k: results["conv3d_dm_train_step"][k] for k in (*keys, "shapes")}
     next(r for r in report["kernels"] if r["name"] == "conv3d_dm_dw")["shapes"] = (
         results["conv3d_dm_dw"]["shapes"])
     print(json.dumps(report))

@@ -76,8 +76,9 @@ _ARGTYPES = {
     # x, h, gamma (or null), scale, bias, x_out, y_out, rows, channels, x_f32,
     # h_f32, eps, stream
     "cryovit_residual_layernorm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, w, y, batch, depth, ci, co, height, width, dilation, stream
-    "cryovit_conv3d_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w (packed), y, batch, depth, ci, co, height, width, dilation,
+    # nblocks, stream
+    "cryovit_conv3d_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y, batch, depth, ci, co, height, width, stream
     "cryovit_convt2x_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, batch, depth, ci, co, height, width, dilation,

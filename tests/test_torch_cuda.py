@@ -266,11 +266,33 @@ def test_window_kernels_refuse_what_they_cannot_take(cuda):
         kernels.check(rc, "window_attention")
 
 
-@pytest.mark.parametrize("ci,co,h,w,dil", [(8, 1, 7, 33, 1), (16, 8, 20, 64, 2), (32, 32, 9, 40, 4)])
-def test_conv3d_kernel_matches_plain(cuda, ci, co, h, w, dil):
-    x = _randn(cuda, 2, 5, ci, h, w)
+@pytest.mark.parametrize(
+    "ci,co,b,d,h,w,dil",
+    [
+        (8, 1, 2, 5, 7, 33, 1), (16, 8, 2, 5, 20, 64, 2), (32, 32, 2, 5, 9, 40, 4),
+        # every (Ci, Co) the decoder makes, forward and input gradient; H not
+        # a multiple of the tile height, W below, past and off a 64-wide tile
+        (32, 32, 1, 12, 10, 128, 8),  # 32 -> 32 at dilation 8 >= D - 4
+        (32, 16, 2, 6, 13, 72, 2),
+        (16, 32, 1, 6, 11, 136, 2),
+        (16, 16, 2, 5, 18, 64, 1),  # 18 rows: past one 16-row tile
+        (8, 8, 1, 6, 35, 24, 1),  # W below one tile, 35 rows past one 32-row tile
+        (8, 1, 2, 4, 4, 128, 6),  # dilation 6 >= D = 4: only the centre depth tap
+        (1, 8, 1, 6, 20, 36, 1),  # the mask head's input gradient; W % 8 != 0
+        (8, 8, 1, 70, 2, 64, 1),  # a depth chain of 70 planes: three segments of 32
+        (24, 16, 1, 5, 5, 16, 1),  # Ci = 24, padded to 32 in the kernel
+        (1, 32, 1, 4, 5, 64, 2),
+        (32, 1, 1, 4, 3, 13, 1),  # W % 8 != 0 at Ci = 32
+    ],
+)
+def test_conv3d_kernel_matches_plain(cuda, ci, co, b, d, h, w, dil):
+    """Within 2^-6·max|plain| (bf16 output), and the same bits on a second
+    run: each output voxel is summed in one warp in a fixed order."""
+    x = _randn(cuda, b, d, ci, h, w)
     kern = _randn(cuda, 3, 3, 3, ci, co, seed=1, scale=(27 * ci) ** -0.5)
-    _close(cd.conv3d_dm(x, kern, (dil, 1, 1)), cd.conv3d_dm_reference(x, kern, (dil, 1, 1)))
+    got = cd.conv3d_dm(x, kern, (dil, 1, 1))
+    _close(got, cd.conv3d_dm_reference(x, kern, (dil, 1, 1)))
+    assert torch.equal(got, cd.conv3d_dm(x, kern, (dil, 1, 1)))
 
 
 @pytest.mark.parametrize("ci,co,h,w", [(8, 1, 5, 9), (16, 8, 12, 20), (32, 32, 8, 128)])
@@ -353,7 +375,8 @@ def test_convt_bwd_kernel_matches_plain(cuda, ci, co, h, w):
 
 def test_conv3d_kernel_takes_one_input_channel(cuda):
     """The input gradient of the mask head's 8 -> 1 conv is a 1 -> 8 conv:
-    the forward kernel zero-fills the rest of its chunk of 8 channels."""
+    the kernel turns each voxel's 9 lateral taps into the 16 channels of one
+    k16 step."""
     g = _randn(cuda, 1, 6, 1, 20, 36)
     kern = _randn(cuda, 3, 3, 3, 1, 8, seed=1)
     _close(cd.conv3d_dm(g, kern), cd.conv3d_dm_reference(g, kern))
@@ -398,6 +421,14 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     x32 = torch.zeros(1, 2, 8, 4, 4, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
         cd.conv3d_dm(x32, torch.zeros(3, 3, 3, 8, 8, device=cuda))
+    with pytest.raises(ValueError, match="bf16 weights"):
+        cd.conv3d_dm(x32.bfloat16(), torch.zeros(3, 3, 3, 8, 8, device=cuda))
+    x12 = torch.zeros(1, 2, 12, 4, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Ci in"):
+        cd.conv3d_dm(x12, torch.zeros(3, 3, 3, 12, 8, device=cuda, dtype=torch.bfloat16))
+    x40 = torch.zeros(1, 2, 40, 4, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 32"):
+        cd.conv3d_dm(x40, torch.zeros(3, 3, 3, 40, 8, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="Co in"):
         ct.convt2x_dm(x32.bfloat16(), torch.zeros(1, 2, 2, 8, 4, device=cuda))
     x = x32.bfloat16()
