@@ -27,7 +27,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    Kernel, plain and library times from CUDA events, and the least time the
    card could take (``bound_ms``); TFLOP/s on every attention row. The JSON
    rows of conv3d_dm (its six serving calls, and under ``train_step`` its
-   twelve train-step calls) and of conv3d_dm_dw (its six) list each call.
+   twelve train-step calls), of convt2x_dm (its two serving calls, and
+   under ``train_step`` the same two at the training crop), of
+   conv3d_dm_dw (its six) and of convt2x_dm_bwd (its two) list each call;
+   convt2x_dm_bwd's dW must repeat bit for bit on a second call.
 4. reference — the serving path on the GPU (bf16, kernels) against the same
    path on the CPU (f32, plain versions) on a small input, once for each
    DINOv2 configuration: the default, ``pair_heads=False`` and
@@ -416,23 +419,37 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
         f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms ({total['bound_by']})")
 
-    total = None
-    for ci, co, side in CONVT_SHAPES:
-        x = randn(1, DEPTH, ci, side, side)
-        w = randn(1, 2, 2, ci, co, scale=ci**-0.5)
+    def convt_row(x, w):
+        """convt2x_dm against its plain version and F.conv_transpose3d."""
+        _, depth, ci, side, _ = x.shape
+        co = w.shape[-1]
         x_cf, w_t = cf(x), w[0].flip(0, 1).permute(2, 3, 0, 1)[:, :, None].contiguous()
         row = compare(
             "convt2x_dm", lambda: ct.convt2x_dm(x, w), lambda: ct.convt2x_dm_reference(x, w),
             lambda: F.conv_transpose3d(x_cf, w_t, stride=(1, 2, 2)), iters=8,
         )
-        voxels = DEPTH * side * side
+        voxels = depth * side * side
         row = with_bound(row, 2 * (ci + 4 * co) * voxels + 2 * 4 * ci * co, 8 * ci * co * voxels)
-        log("kernels", f"convt2x_dm {ci}->{co} at {DEPTH}x{side}^2 -> {2 * side}^2: max|err| "
+        log("kernels", f"convt2x_dm {ci}->{co} at {depth}x{side}^2 -> {2 * side}^2: max|err| "
             f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {row['library_ms']:.3f} ms (F.conv_transpose3d, channels-first bf16), "
             f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
-        total = _accumulate(total, row)
-    results["convt2x_dm"] = total
+        return row
+
+    # the serving pass's two calls, then the same two at the training crop
+    # (a train step's forward)
+    for key, depth in (("convt2x_dm", DEPTH), ("convt2x_dm_train_step", TRAIN_DEPTH)):
+        total, per_shape = None, []
+        for ci, co, side in CONVT_SHAPES:
+            row = convt_row(randn(1, depth, ci, side, side), randn(1, 2, 2, ci, co, scale=ci**-0.5))
+            total = _accumulate(total, row)
+            per_shape.append(shape_entry(row, ci=ci, co=co, side=side, depth=depth))
+        results[key] = dict(total, shapes=per_shape)
+    results["convt2x_dm"]["max_abs_err"] = max(total["max_abs_err"],
+                                               results["convt2x_dm"]["max_abs_err"])
+    log("kernels", f"convt2x_dm per train step (2 calls at {TRAIN_DEPTH}x{SIDE}^2): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms ({total['bound_by']})")
 
     # the backward kernels at the training crop's shapes
     conv_bwd = torch.ops.aten.convolution_backward
@@ -465,7 +482,7 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
         f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms ({total['bound_by']})")
 
-    total = None
+    total, per_shape = None, []
     for ci, co, side in CONVT_SHAPES:
         x = randn(1, TRAIN_DEPTH, ci, side, side)
         gy = randn(1, TRAIN_DEPTH, co, 2 * side, 2 * side)
@@ -480,22 +497,28 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
                              True, [0, 0, 0], 1, [True, True, False]),
             iters=4, rel_tols=(2.0**-6, 1e-3),
         )
+        # dW's partials are added in a fixed order: a second call gives the same bits
+        if not torch.equal(ct.convt2x_dm_bwd(gy, x, w)[1], ct.convt2x_dm_bwd(gy, x, w)[1]):
+            raise AssertionError(f"convt2x_dm_bwd {ci}->{co}: dW differs from run to run")
         voxels = TRAIN_DEPTH * side * side
         row = with_bound(row, 2 * (2 * ci + 4 * co) * voxels + 2 * 4 * ci * co
                          + 4 * 4 * ci * co, 16 * ci * co * voxels)
         log("kernels", f"convt2x_dm_bwd {ci}->{co} at {TRAIN_DEPTH}x{side}^2: max|err| "
             f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {row['library_ms']:.3f} ms (aten.convolution_backward input+weight, "
-            f"channels-first bf16), bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+            f"channels-first bf16), bound {row['bound_ms']:.3f} ms ({row['bound_by']}); "
+            "dW the same bits on a second call")
         total = _accumulate(total, row)
+        per_shape.append(shape_entry(row, ci=ci, co=co, side=side, depth=TRAIN_DEPTH))
         del x, gy, x_cf, g_cf
-    results["convt2x_dm_bwd"] = total
+    results["convt2x_dm_bwd"] = dict(total, shapes=per_shape)
     results.update(window_kernel_rows(dev, randn))
     results.update(dino_variant_rows(randn))
     results.update(int8_attention_rows(dev))
     log("kernels", "ms of the four conv kernels are sums over the shapes above (one decoder "
         f"tail pass: forward at {DEPTH} slices, backward at {TRAIN_DEPTH}; conv3d_dm's "
-        f"JSON ms is the serving pass, its max|err| covers the train step's calls too); "
+        f"and convt2x_dm's JSON ms are the serving pass, their max|err| covers the train "
+        "step's calls too); "
         "the attention kernels' and the three Hiera kernels' ms are one call each (one "
         "block); residual_layernorm's JSON row is the (x bf16, h bf16, gamma) call, its "
         "max|err| covers all four cases")
@@ -1619,6 +1642,13 @@ def main() -> int:
     row4["train_step"] = {k: results["conv3d_dm_train_step"][k] for k in (*keys, "shapes")}
     next(r for r in report["kernels"] if r["name"] == "conv3d_dm_dw")["shapes"] = (
         results["conv3d_dm_dw"]["shapes"])
+    # the ConvTranspose's two calls of a serving pass and of a train step,
+    # and its backward's two
+    row6 = next(r for r in report["kernels"] if r["name"] == "convt2x_dm")
+    row6["shapes"] = results["convt2x_dm"]["shapes"]
+    row6["train_step"] = {k: results["convt2x_dm_train_step"][k] for k in (*keys, "shapes")}
+    next(r for r in report["kernels"] if r["name"] == "convt2x_dm_bwd")["shapes"] = (
+        results["convt2x_dm_bwd"]["shapes"])
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -79,8 +79,8 @@ _ARGTYPES = {
     # x, w (packed), y, batch, depth, ci, co, height, width, dilation,
     # nblocks, stream
     "cryovit_conv3d_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, y, batch, depth, ci, co, height, width, stream
-    "cryovit_convt2x_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, batch, depth, ci, co, height, width, nblocks, stream
+    "cryovit_convt2x_dm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, batch, depth, ci, co, height, width, dilation,
     # nblocks, stream
     "cryovit_conv3d_dm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

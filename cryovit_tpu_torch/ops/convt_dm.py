@@ -61,6 +61,13 @@ def _check_operands(x: torch.Tensor, kernel: torch.Tensor, name: str):
     return b, d, ci, h, w, kernel.shape[4]
 
 
+def _check_kernel_dtype(kernel: torch.Tensor, name: str) -> None:
+    """The kernels multiply bf16 weights on the tensor cores; another dtype
+    raises rather than being rounded silently."""
+    if kernel.dtype != torch.bfloat16:
+        raise ValueError(f"{name} kernel takes bf16 weights, got {kernel.dtype}")
+
+
 def convt2x_dm_reference(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Plain 2× ConvTranspose on depth-major ``(B, D, Ci, H, W)``, f32 sums."""
     b, d, _, h, w = x.shape
@@ -74,8 +81,8 @@ def convt2x_dm(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """The ConvTranspose as :func:`convt2x_dm_reference` computes it.
 
     On a CUDA device the Hopper kernel runs: contiguous bf16 x with
-    Ci ≤ :data:`KERNEL_MAX_CIN`, Co in :data:`KERNEL_COUT`. Anything else
-    raises; it never falls back.
+    Ci ≤ :data:`KERNEL_MAX_CIN`, a bf16 kernel with Co in
+    :data:`KERNEL_COUT`. Anything else raises; it never falls back.
     """
     if x.device.type == "cpu":
         return convt2x_dm_reference(x, kernel)
@@ -87,13 +94,14 @@ def convt2x_dm(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
             f"convt2x_dm kernel supports Ci <= {KERNEL_MAX_CIN} and Co in "
             f"{KERNEL_COUT}, got Ci={ci}, Co={co}"
         )
-    if b * d > 65535:
-        raise ValueError("B·D must be at most 65535")
+    _check_kernel_dtype(kernel, "convt2x_dm")
     lib = kernels.load_library()
-    wmat = _parity_weights(kernel).to(torch.float32).contiguous()
+    # one persistent block per SM; the kernel strides them over its tiles
+    nblocks = torch.cuda.get_device_properties(x.device).multi_processor_count
+    wmat = _parity_weights(kernel).contiguous()
     y = torch.empty((b, d, co, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     rc = lib.cryovit_convt2x_dm(
-        x.data_ptr(), wmat.data_ptr(), y.data_ptr(), b, d, ci, co, h, w,
+        x.data_ptr(), wmat.data_ptr(), y.data_ptr(), b, d, ci, co, h, w, nblocks,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(rc, "convt2x_dm")
@@ -121,9 +129,10 @@ def convt2x_dm_bwd(
     """``(dx, dW)`` as :func:`convt2x_dm_bwd_reference` computes them.
 
     On a CUDA device the Hopper kernel runs, one pass for both: contiguous
-    bf16 g and x with Ci and Co in :data:`BWD_KERNEL_CHANNELS`. Anything
-    else raises; it never falls back. dW sums run in a fixed order, so the
-    result does not change from run to run.
+    bf16 g and x and a bf16 kernel, with Ci and Co in
+    :data:`BWD_KERNEL_CHANNELS`. Anything else raises; it never falls back.
+    dW sums run in a fixed order, so the result does not change from run to
+    run.
     """
     if x.device.type == "cpu":
         return convt2x_dm_bwd_reference(g, x, kernel)
@@ -142,10 +151,11 @@ def convt2x_dm_bwd(
             f"convt2x_dm_bwd kernel supports Ci and Co in {BWD_KERNEL_CHANNELS}, "
             f"got Ci={ci}, Co={co}"
         )
+    _check_kernel_dtype(kernel, "convt2x_dm_bwd")
     lib = kernels.load_library()
-    wmat = _parity_weights(kernel).to(torch.float32).contiguous()
-    n_items = b * d * -(-h // 4) * -(-w // 32)  # the kernel's 4 x 32 tiles
-    nblocks = kernels.grid_blocks(x.device, n_items)
+    wmat = _parity_weights(kernel).contiguous()
+    n_items = b * d * -(-h // (64 // co)) * -(-w // 64)  # the kernel's (64 / Co) x 64 tiles
+    nblocks = kernels.grid_blocks(x.device, n_items, per_sm=1)
     partial = torch.empty(nblocks * 4 * ci * co, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dwp = torch.empty((2, 2, ci, co), dtype=torch.float32, device=x.device)

@@ -295,11 +295,24 @@ def test_conv3d_kernel_matches_plain(cuda, ci, co, b, d, h, w, dil):
     assert torch.equal(got, cd.conv3d_dm(x, kern, (dil, 1, 1)))
 
 
-@pytest.mark.parametrize("ci,co,h,w", [(8, 1, 5, 9), (16, 8, 12, 20), (32, 32, 8, 128)])
+@pytest.mark.parametrize(
+    "ci,co,h,w",
+    [
+        (8, 1, 5, 9), (16, 8, 12, 20), (32, 32, 8, 128),
+        (64, 8, 9, 72),  # Ci = 64: four k16 steps; odd H; W past one 64-wide tile
+        (5, 16, 3, 33),  # Ci = 5, zero-padded to one k16 step; W % 8 != 0
+        (24, 32, 7, 64),  # Ci = 24: a half-empty second k16 step; odd H
+        (16, 1, 1, 8),  # H = 1 of a tile's 8 rows; W = 8, one 16-byte chunk
+    ],
+)
 def test_convt_kernel_matches_plain(cuda, ci, co, h, w):
+    """Within 2^-6·max|plain| (bf16 output), B·D = 6 planes, and the same
+    bits on a second run."""
     x = _randn(cuda, 2, 3, ci, h, w)
     kern = _randn(cuda, 1, 2, 2, ci, co, seed=1, scale=ci**-0.5)
-    _close(ct.convt2x_dm(x, kern), ct.convt2x_dm_reference(x, kern))
+    got = ct.convt2x_dm(x, kern)
+    _close(got, ct.convt2x_dm_reference(x, kern))
+    assert torch.equal(got, ct.convt2x_dm(x, kern))
 
 
 def test_each_launch_counts_once(cuda):
@@ -360,9 +373,19 @@ def test_conv3d_dw_kernel_matches_plain(cuda, ci, co, d, h, w, dil):
     assert torch.equal(got, cd.conv3d_dm_dw(x, g, (dil, 1, 1)))
 
 
-@pytest.mark.parametrize("ci,co,h,w", [(8, 8, 5, 9), (16, 8, 12, 20), (32, 32, 8, 128), (32, 16, 3, 33)])
+@pytest.mark.parametrize(
+    "ci,co,h,w",
+    [
+        (8, 8, 5, 9), (16, 8, 12, 20), (32, 32, 8, 128), (32, 16, 3, 33),
+        (16, 16, 7, 72),  # odd H; W a multiple of 8 past one 64-wide tile
+        (32, 8, 9, 40),  # Ci / Co = 4: the two-stage ring; odd H
+        (8, 32, 1, 64),  # H = 1 of a tile's 2 rows
+    ],
+)
 def test_convt_bwd_kernel_matches_plain(cuda, ci, co, h, w):
-    """dx in bf16 within 2^-6·max|plain|; dW (f32) within 1e-3·max|plain|."""
+    """dx in bf16 within 2^-6·max|plain|; dW (f32) within 1e-3·max|plain|;
+    B·D = 6 planes; the same bits on a second run (dW's partials are added
+    in a fixed order)."""
     x = _randn(cuda, 2, 3, ci, h, w)
     g = _randn(cuda, 2, 3, co, 2 * h, 2 * w, seed=1)
     kern = _randn(cuda, 1, 2, 2, ci, co, seed=2, scale=ci**-0.5)
@@ -371,6 +394,8 @@ def test_convt_bwd_kernel_matches_plain(cuda, ci, co, h, w):
     _close(dx, want_dx)
     assert dw.shape == want_dw.shape == (1, 2, 2, ci, co)
     assert (dw - want_dw).abs().max().item() <= 1e-3 * want_dw.abs().max().item()
+    dx2, dw2 = ct.convt2x_dm_bwd(g, x, kern)
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2)
 
 
 def test_conv3d_kernel_takes_one_input_channel(cuda):
@@ -416,8 +441,9 @@ def test_decoder_gradients_match_plain_versions_on_the_gpu(cuda, monkeypatch):
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
-    """f32 CUDA tensors, head widths other than 64 and unsupported channel
-    counts raise: nothing falls back to the plain versions on the GPU."""
+    """f32 CUDA tensors and conv weights, head widths other than 64 and
+    unsupported channel counts raise: nothing falls back to the plain
+    versions on the GPU."""
     x32 = torch.zeros(1, 2, 8, 4, 4, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
         cd.conv3d_dm(x32, torch.zeros(3, 3, 3, 8, 8, device=cuda))
@@ -431,6 +457,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
         cd.conv3d_dm(x40, torch.zeros(3, 3, 3, 40, 8, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="Co in"):
         ct.convt2x_dm(x32.bfloat16(), torch.zeros(1, 2, 2, 8, 4, device=cuda))
+    with pytest.raises(ValueError, match="bf16 weights"):
+        ct.convt2x_dm(x32.bfloat16(), torch.zeros(1, 2, 2, 8, 8, device=cuda))
     x = x32.bfloat16()
     with pytest.raises(ValueError, match="bf16"):
         cd.conv3d_dm_dw(x32, x)
@@ -443,6 +471,9 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
         ct.convt2x_dm_bwd(g, x, torch.zeros(1, 2, 2, 8, 1, device=cuda))
     with pytest.raises(ValueError, match="is not"):
         ct.convt2x_dm_bwd(g[:, :, :, :4].contiguous(), x, torch.zeros(1, 2, 2, 8, 1, device=cuda))
+    with pytest.raises(ValueError, match="bf16 weights"):
+        ct.convt2x_dm_bwd(torch.zeros(1, 2, 8, 8, 8, device=cuda, dtype=torch.bfloat16), x,
+                          torch.zeros(1, 2, 2, 8, 8, device=cuda))
     q = torch.zeros(1, 5, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q, torch.zeros(3, 64, device=cuda, dtype=torch.bfloat16), 2)

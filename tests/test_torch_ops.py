@@ -120,17 +120,19 @@ def test_packed_conv_weights_give_the_plain_conv(rng, ci, co, dil):
     torch.testing.assert_close(got, conv3d_dm_reference(x, kern, (dil, 1, 1)), atol=1e-5, rtol=0)
 
 
-def test_convt2x_dm_matches_pallas_kernel(rng):
-    """bf16 in and out, compared in f32 with rtol 1e-2 (bf16 rounding)."""
-    x = rng.standard_normal((2, 3, 8, 4, 128)).astype(np.float32)
-    kern = rng.standard_normal((1, 2, 2, 8, 8)).astype(np.float32) * 0.3
+@pytest.mark.parametrize("ci,co", [(8, 8), (32, 32), (16, 8)])
+def test_convt2x_dm_matches_pallas_kernel(rng, ci, co):
+    """bf16 in and out, compared in f32 with rtol 1e-2 (bf16 rounding); the
+    decoder's two ConvTransposes (32 -> 32, 16 -> 8) and 8 -> 8, W = 128."""
+    x = rng.standard_normal((2, 3, ci, 4, 128)).astype(np.float32)
+    kern = rng.standard_normal((1, 2, 2, ci, co)).astype(np.float32) * 0.3
     want = jax_convt2x_dm(
         jnp.asarray(x, jnp.bfloat16), jnp.asarray(kern, jnp.bfloat16), interpret=True
     )
     got = convt2x_dm(
         torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(kern).to(torch.bfloat16)
     )
-    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 8, 8, 256)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, co, 8, 256)
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want).astype(np.float32), rtol=1e-2, atol=1e-2
     )
