@@ -17,7 +17,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    backward kernels and conv3d_dm's twelve calls of a train step (forward,
    and input gradient with flipped, in/out-swapped taps); the three Hiera
    kernels at Hiera-L's stage-3 shapes for a batch of 64 slices at 512²,
-   and the global attention again at Hiera-T's (4 heads of 96); the pair
+   and the global attention again at Hiera-T's (4 heads of 96), the two
+   window blocks also product by product (profiler: LN → qkv, attention,
+   proj; LN → fc1 → GELU, fc2) and beside a library composition of the same
+   function (``F.layer_norm``, cuBLAS ``F.linear``, SDPA or ``F.gelu``, the
+   residual add; timed, never used by the port); the pair
    attention also at ViT-g's 16×4101 tokens (1024²);
    the int8 attention (``flash_attention(quant=...)``, each of qk, pv,
    qkpv) and its scale pre-pass at ViT-g's 64×1029 and 16×4101 tokens, on
@@ -526,9 +530,55 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
     return results
 
 
+def _kernel_ms(run, iters: int) -> dict[str, float]:
+    """Device ms per call of ``run`` by kernel name, from torch.profiler over
+    ``iters`` calls after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    ms: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            ms[e.key] = ms.get(e.key, 0.0) + e.self_device_time_total / 1e3 / iters
+    return ms
+
+
+# csrc/window_block.cu's product kernels by their profiler names: with the
+# LayerNorm prologue (qkv, fc1) and with the residual epilogue (proj, fc2)
+LN_PRODUCT = r"ln_gemm_kernel"
+RESIDUAL_PRODUCT = r"residual_gemm_kernel"
+
+
+def _window_products(what: str, run, products, iters: int = 10) -> dict[str, dict]:
+    """Each product of a window-block kernel on its own: device ms (the
+    kernels whose names match the product's pattern), TFLOP/s and bound.
+    ``products``: (name, kernel-name pattern, bytes, flops)."""
+    by_kernel = _kernel_ms(run, iters)
+    out = {}
+    for name, pattern, n_bytes, flops in products:
+        ms = sum(v for k, v in by_kernel.items() if re.search(pattern, k))
+        if not ms:
+            raise AssertionError(f"{what}: no kernel matches {pattern} in {sorted(by_kernel)}")
+        row = with_bound({"ms": ms}, n_bytes, flops)
+        out[name] = {"ms": ms, "tflops": flops / ms / 1e9 if ms else None,
+                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+        log("kernels", f"{what} product {name}: {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return out
+
+
 def window_kernel_rows(dev: torch.device, randn) -> dict[str, dict]:
     """The three Hiera kernels against their plain versions at Hiera-L's
-    stage-3 shapes for a 64-slice batch at 512²."""
+    stage-3 shapes for a 64-slice batch at 512²; for the two window blocks
+    also each product's own time (profiler) and the time of a library
+    composition of the same function (``F.layer_norm``, cuBLAS ``F.linear``,
+    SDPA or ``F.gelu``, the residual add: timed, never used by the port)."""
     from cryovit_tpu_torch.ops import window_attention as wa
 
     def block_params(c, f, c_out):
@@ -537,28 +587,65 @@ def window_kernel_rows(dev: torch.device, randn) -> dict[str, dict]:
                 randn(f, c, scale=c**-0.5), randn(f, scale=0.1),
                 randn(c_out, inner, scale=inner**-0.5), randn(c_out, scale=0.1))
 
+    def composition(name, fn, plain):
+        got, want = fn().float(), plain().float()
+        err = (got - want).abs().max().item()
+        del got, want
+        ms = time_ms(fn, 10)
+        log("kernels", f"{name} library composition: {ms:.3f} ms (max|diff| from plain "
+            f"{err:.3g}; timed only)")
+        return ms
+
     results = {}
     n, t, c, heads, hidden = WINDOW_SHAPE
     rows, d = n * t, c // heads
     x = randn(n, t, c)
     ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj = block_params(c, 3 * c, c)
-    p = (ln_w, ln_b, *wa.fold_q_scale(w_qkv, b_qkv, heads), w_proj, b_proj)
+    w_qkv, b_qkv = wa.fold_q_scale(w_qkv, b_qkv, heads)
+    p = (ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj)
+    ln_w16, ln_b16 = ln_w.bfloat16(), ln_b.bfloat16()
+
+    def library_attention():
+        y = F.layer_norm(x, (c,), ln_w16, ln_b16, 1e-6)
+        q, k, v = F.linear(y, w_qkv, b_qkv).view(n, t, 3, heads, d).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=1.0 / wa.LOG2E)  # q pre-scaled
+        return x + F.linear(o.transpose(1, 2).reshape(n, t, c), w_proj, b_proj)
+
     row = compare(
         "window_block_attention",
         lambda: wa.window_block_attention(x, *p, heads),
         lambda: wa.window_block_attention_reference(x, *p, heads),
         None, iters=10,
     )
-    flops = 2 * rows * c * 3 * c + 4 * n * heads * t * t * d + 2 * rows * c * c
+    attn_flops = 4 * n * heads * t * t * d
+    flops = 2 * rows * c * 3 * c + attn_flops + 2 * rows * c * c
     n_bytes = 2 * 2 * rows * c + 2 * (4 * c * c + 4 * c) + 4 * 2 * c
     results["window_block_attention"] = row = with_bound(row, n_bytes, flops)
+    row["library_composition_ms"] = composition(
+        "window_block_attention", library_attention,
+        lambda: wa.window_block_attention_reference(x, *p, heads))
+    row["products"] = _window_products(
+        "window_block_attention", lambda: wa.window_block_attention(x, *p, heads), [
+            ("LN1 -> qkv + bias", LN_PRODUCT,
+             2 * rows * (c + 3 * c) + 2 * 3 * c * (c + 1) + 4 * 2 * c, 2 * rows * c * 3 * c),
+            ("attention", "attention_sm90", 2 * rows * (3 * c + c), attn_flops),
+            ("proj + bias + x", RESIDUAL_PRODUCT, 2 * rows * 3 * c + 2 * c * (c + 1),
+             2 * rows * c * c),
+        ])
     log("kernels", f"window_block_attention N={n} T={t} C={c} ({heads}x{d}): max|err| "
         f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
         f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library: none (no single PyTorch call "
-        f"computes LN + qkv + attention + proj + residual), bound {row['bound_ms']:.3f} ms "
+        f"computes LN + qkv + attention + proj + residual; the composition "
+        f"{row['library_composition_ms']:.3f} ms), bound {row['bound_ms']:.3f} ms "
         f"({row['bound_by']})")
 
-    p = block_params(c, hidden, c)
+    ln_w, ln_b, w1, b1, w2, b2 = p = block_params(c, hidden, c)
+    ln_w16, ln_b16 = ln_w.bfloat16(), ln_b.bfloat16()
+
+    def library_mlp():
+        y = F.layer_norm(x, (c,), ln_w16, ln_b16, 1e-6)
+        return x + F.linear(F.gelu(F.linear(y, w1, b1)), w2, b2)
+
     row = compare(
         "window_block_mlp",
         lambda: wa.window_block_mlp(x, *p), lambda: wa.window_block_mlp_reference(x, *p),
@@ -567,10 +654,20 @@ def window_kernel_rows(dev: torch.device, randn) -> dict[str, dict]:
     flops = 2 * 2 * rows * c * hidden
     n_bytes = 2 * 2 * rows * c + 2 * (2 * c * hidden + hidden + c) + 4 * 2 * c
     results["window_block_mlp"] = row = with_bound(row, n_bytes, flops)
+    row["library_composition_ms"] = composition(
+        "window_block_mlp", library_mlp, lambda: wa.window_block_mlp_reference(x, *p))
+    row["products"] = _window_products(
+        "window_block_mlp", lambda: wa.window_block_mlp(x, *p), [
+            ("LN2 -> fc1 + bias -> GELU", LN_PRODUCT, 2 * rows * (c + hidden)
+             + 2 * hidden * (c + 1) + 4 * 2 * c, 2 * rows * c * hidden),
+            ("fc2 + bias + x", RESIDUAL_PRODUCT, 2 * rows * (hidden + 2 * c)
+             + 2 * c * (hidden + 1), 2 * rows * hidden * c),
+        ])
     log("kernels", f"window_block_mlp {rows} tokens x {c} -> {hidden} -> {c}: max|err| "
         f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
         f"TFLOP/s), plain {row['plain_ms']:.3f} ms, library: none (no single PyTorch call "
-        f"computes LN + fc1 + GELU + fc2 + residual), bound {row['bound_ms']:.3f} ms "
+        f"computes LN + fc1 + GELU + fc2 + residual; the composition "
+        f"{row['library_composition_ms']:.3f} ms), bound {row['bound_ms']:.3f} ms "
         f"({row['bound_by']})")
     del x, p
 
@@ -1138,7 +1235,8 @@ def sam_serving_phase(dev: torch.device, workdir: Path, tiny: bool = False) -> d
 
 
 SAM_PROFILE_GROUPS = (
-    ("port kernels (window blocks, attention)", ("attention_sm90", "ln_gemm")),
+    ("port kernels (window blocks, attention)",
+     ("attention_sm90", "ln_gemm", "residual_gemm")),
     ("cuBLAS / cuDNN (XLA-path projections, patch embed, FPN)",
      ("xmma", "cutlass", "nvjet", "gemm", "cudnn", "implicit", "conv")),
     ("host <-> device copies", ("Memcpy",)),
@@ -1585,7 +1683,8 @@ def _kernel_names(build_log: str):
         if "Compiling entry function" in line:
             m = re.search(r"((?:attention_int8_scales|attention_sm90|flash_attention"
                           r"|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
-                          r"|sum_partials|window_attention|ln_gemm|residual_layernorm)_kernel)"
+                          r"|sum_partials|window_attention|ln_gemm|residual_gemm"
+                          r"|residual_layernorm)_kernel)"
                           r"(I(?:L[ib]\d+E)+E)?",
                           line)
             args = ",".join(re.findall(r"L[ib](\d+)E", m[2])) if m and m[2] else ""
@@ -1635,6 +1734,11 @@ def main() -> int:
     row_t = results["window_attention hiera_t"]
     next(r for r in report["kernels"] if r["name"] == "window_attention")["hiera_t"] = {
         "launches": sam_t["window_attention"], **{k: row_t[k] for k in keys}}
+    # the window blocks' products one by one, and their library composition
+    for name in ("window_block_attention", "window_block_mlp"):
+        row = next(r for r in report["kernels"] if r["name"] == name)
+        row["products"] = results[name]["products"]
+        row["library_composition_ms"] = results[name]["library_composition_ms"]
     # the conv's six calls of a serving pass and twelve of a train step, and
     # the weight gradient's six, one by one
     row4 = next(r for r in report["kernels"] if r["name"] == "conv3d_dm")

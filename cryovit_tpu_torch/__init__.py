@@ -13,7 +13,7 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["compute_dtype", "resolve_device"]
+__all__ = ["compute_dtype", "require_bf16_on_cuda", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -36,3 +36,17 @@ def compute_dtype(device: torch.device) -> torch.dtype:
     """The default compute dtype on ``device``: bf16 on a GPU (the kernels'
     dtype), f32 on the CPU."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def require_bf16_on_cuda(device: torch.device, dtype: torch.dtype, what: str,
+                         kernels: str) -> None:
+    """Refuse a compute dtype other than bf16 on a CUDA device, before any
+    weight or step is built: the port's CUDA ``kernels`` take bf16 only (the
+    JAX package computes f32 there too; the port builds no f32 kernels).
+    The CPU takes f32 through the plain versions."""
+    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(
+            f"{what}: {dtype} on a CUDA device is not supported; the port's CUDA kernels "
+            f"({kernels}) take bf16 only. Compute in bf16 on the GPU, or in f32 on the CPU "
+            "(device='cpu')"
+        )

@@ -81,6 +81,8 @@
 //   reads makes ptxas serialize the whole wgmma pipeline (warning C7513);
 // - keys at or past kv_len score -inf; query rows past seq are not stored;
 //   a consumer warpgroup whose 64 rows all lie past seq does not run.
+// The TMA, mbarrier and wgmma helpers are csrc/sm90.cuh's, shared with
+// csrc/window_block.cu.
 // Not yet done (later work): ping-pong scheduling of the consumer
 // warpgroups, 128-key tiles, persistent blocks, TMA stores.
 
@@ -90,6 +92,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -119,191 +123,8 @@ struct OutStrides {  // elements
   long long b, h, n;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spins until the phase of parity `parity` of the barrier has completed.
-// A wait of 2^26 polls (seconds) is a fault of the pipeline's protocol: the
-// kernel traps, and the launch reports an error instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of `map` at (col, token, head, batch) into shared memory at dst;
-// completion is counted in bytes on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col,
-                                         int token, int head, int batch, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(token), "r"(head), "r"(batch),
-      "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and layout type (1 = 128-byte swizzle, 2 =
-// 64-byte, 3 = 32-byte). Tiles are aligned to their swizzle pattern, so the
-// base offset is 0.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | (uint64_t)layout << 62;
-}
-
-// K-major operand (Q, K): rows of row_bytes, 8-row groups row_bytes * 8
-// apart; a k step of 16 columns is +32 bytes on the start address.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr, uint32_t row_bytes,
-                                                 uint32_t layout) {
-  return gmma_desc(addr, 16, 8 * row_bytes, layout);
-}
-
-// MN-major operand (V: keys are the k dimension, head columns the n
-// dimension, rows of row_bytes): 8-key groups row_bytes * 8 apart; a k step
-// of 16 keys is +16 rows on the start address. The n extent is one swizzle
-// row, so the leading byte offset is unused.
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t row_bytes,
-                                                  uint32_t layout) {
-  return gmma_desc(addr, 8 * row_bytes, 8 * row_bytes, layout);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed wgmma groups of this warp are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x (ex2.approx, denormal results flushed to zero; 2^-inf = 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (64 x 64) = A (64 x 16, K-major in shared memory) * B (16 x 64, K-major
-// in shared memory) + (scale_d ? d : 0).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 64) += A (64 x 16 bf16 in registers) * B (16 x 64, MN-major in
-// shared memory).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 32) += A (64 x 16 bf16 in registers) * B (16 x 32, MN-major in
-// shared memory).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 16) += A (64 x 16 bf16 in registers) * B (16 x 16, MN-major in
-// shared memory).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// Pins accumulator registers around asynchronous wgmma (no copies of them
-// are moved across the issue or the wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// The same for register A fragments, read until the wgmma completes.
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
 }
 
 // The operands' tensor maps: the first 64 columns, and for D > 64 the next
@@ -406,9 +227,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       *p = val;
     }
-    // generic-proxy writes, read next by wgmma (async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    fence_proxy_async();  // generic-proxy writes, read next by wgmma
+    bar_sync(1 + wg, 128);
   }
   const uint64_t dq = desc_k_major(my_q, 128, 1);
   const uint64_t dq_tail = desc_k_major(my_q + kMainBytes, T::kTailRow, T::kTailLayout);
@@ -615,31 +435,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // One (batch, head, token, D) bf16 operand: its base, element strides with a

@@ -36,7 +36,11 @@ from cryovit_tpu_torch.models._init import lecun_normal
 from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
 from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
 
-__all__ = ["CryoVIT", "SynthesisBlock", "make_cryovit", "random_cryovit_state_dict"]
+__all__ = ["BF16_KERNELS", "CryoVIT", "SynthesisBlock", "make_cryovit", "random_cryovit_state_dict"]
+
+# the decoder's CUDA kernels, bf16 only (a CUDA device refuses another
+# compute dtype up front: cryovit_tpu_torch.require_bf16_on_cuda)
+BF16_KERNELS = "conv3d_dm, conv3d_dm_dw, convt2x_dm, convt2x_dm_bwd"
 
 # (c2, c3, d1, d2) per SynthesisBlock, reference models/cryovit.py:18-34
 _BLOCKS = ((192, 128, 32, 24), (64, 32, 16, 12), (32, 32, 8, 4), (16, 8, 2, 1))

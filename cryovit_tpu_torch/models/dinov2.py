@@ -37,11 +37,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cryovit_tpu_torch import require_bf16_on_cuda
 from cryovit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bhnd
 from cryovit_tpu_torch.ops.fused_norm import residual_layernorm
 from cryovit_tpu_torch.ops.resize import _cubic_kernel
 
-__all__ = ["DinoV2Config", "DinoV2", "assign_weights", "interpolate_pos_embed", "make_dinov2"]
+__all__ = [
+    "BF16_KERNELS", "DinoV2Config", "DinoV2", "assign_weights", "interpolate_pos_embed",
+    "make_dinov2",
+]
+
+# the backbone's CUDA kernels, bf16 only (a CUDA device refuses another
+# compute dtype up front: cryovit_tpu_torch.require_bf16_on_cuda)
+BF16_KERNELS = "flash_attention, flash_attention_bhnd, residual_layernorm"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,7 +333,12 @@ def make_dinov2(
     The module is built on the meta device and takes the state dict's
     tensors as its parameters (:func:`assign_weights`), so the giant model
     is never initialised twice or copied through host memory; tensors
-    already on ``device`` in ``dtype`` are shared, not copied."""
+    already on ``device`` in ``dtype`` are shared, not copied. On a CUDA
+    device ``dtype`` must be bf16, the kernels' dtype: another raises before
+    any weight is built."""
+    target = device if device is not None else (  # None: where the tensors are
+        "cuda" if any(torch.is_tensor(v) and v.is_cuda for v in state_dict.values()) else "cpu")
+    require_bf16_on_cuda(target, dtype, f"make_dinov2(dtype={dtype})", BF16_KERNELS)
     cfg = cfg or DinoV2Config.giant()
     if pair_heads is None:
         pair_heads = cfg.embed_dim // cfg.num_heads == 64 and cfg.num_heads % 2 == 0

@@ -10,8 +10,9 @@ by ``D^-½·log2(e)``: :func:`fold_q_scale` folds that factor into the q third
 of the qkv projection, in f32 before the weights are cast to bf16.
 
 - :func:`window_block_attention`: ``x + proj(MHA(qkv(LN(x))))`` per window
-  of ``(N, T, C)`` tokens (``csrc/window_block.cu`` +
-  ``csrc/attention_sm90.cu`` on a GPU).
+  of ``(N, T, C)`` tokens (``csrc/window_block.cu``'s wgmma + TMA
+  LayerNorm-prologue and residual products + ``csrc/attention_sm90.cu`` on
+  a GPU).
 - :func:`window_block_mlp`: ``x + fc2(GELU(fc1(LN(x))))`` per token
   (``csrc/window_block.cu``).
 - :func:`window_attention`: ``softmax(q kᵀ) v`` per (batch, head), for the
@@ -38,6 +39,7 @@ from cryovit_tpu_torch import kernels
 
 __all__ = [
     "HEAD_DIMS",
+    "MAX_BLOCK_WIDTH",
     "fold_q_scale",
     "layer_norm_f32",
     "window_attention",
@@ -51,6 +53,9 @@ __all__ = [
 # head widths the CUDA attention kernel is built for: 72 (sam2.1_hiera_l),
 # 96 (Hiera-T's global blocks, SAM2Config.medsam_tiny())
 HEAD_DIMS = (72, 96)
+# the widest C the window-block kernels take: their LayerNorm products hold
+# 128 rows of C in shared memory beside the weight ring (csrc/window_block.cu)
+MAX_BLOCK_WIDTH = 704
 LOG2E = 1.4426950408889634
 
 
@@ -173,6 +178,14 @@ def _check_width(c: int, heads: int | None = None) -> None:
         )
 
 
+def _check_block_width(c: int) -> None:
+    if c > MAX_BLOCK_WIDTH:
+        raise ValueError(
+            f"the window-block kernels take C up to {MAX_BLOCK_WIDTH} (their LayerNorm products "
+            f"hold 128 rows of C in shared memory); got {c}"
+        )
+
+
 def window_block_attention(
     x: torch.Tensor,
     ln_weight: torch.Tensor,
@@ -190,8 +203,9 @@ def window_block_attention(
     x: ``(N, T, C)`` windows of tokens; LayerNorm affine ``(C,)`` f32;
     qkv ``(3C, C)`` / ``(3C,)`` with its q third pre-scaled
     (:func:`fold_q_scale`) and proj ``(C, C)`` / ``(C,)`` in torch Linear
-    layout. On a CUDA device: bf16 x and weights, contiguous, head
-    dim in :data:`HEAD_DIMS`; anything else raises.
+    layout. On a CUDA device: bf16 x and weights, contiguous, C at most
+    :data:`MAX_BLOCK_WIDTH`, head dim in :data:`HEAD_DIMS`; anything else
+    raises.
     """
     if _device_of(x, "window-block attention") == "cpu":
         return window_block_attention_reference(
@@ -201,6 +215,7 @@ def window_block_attention(
         raise ValueError(f"x must be (N, T, C); got {tuple(x.shape)}")
     n, t, c = x.shape
     _check_width(c, heads)
+    _check_block_width(c)
     bf, dev = torch.bfloat16, x.device
     _check(x, "x", (n, t, c), bf, dev)
     for name, tensor, shape, dtype in (
@@ -209,8 +224,8 @@ def window_block_attention(
         ("proj_weight", proj_weight, (c, c), bf), ("proj_bias", proj_bias, (c,), bf),
     ):
         _check(tensor, name, shape, dtype, dev)
-    if n > 65535 or n * t > 65535 * 128:
-        raise ValueError(f"at most 65535 windows and 65535·128 tokens; got {n} x {t}")
+    if n > 65535 or n * t >= 2**31:
+        raise ValueError(f"at most 65535 windows and 2³¹ − 1 tokens; got {n} x {t}")
     lib = kernels.load_library()
     qkv = torch.empty((n * t, 3 * c), dtype=bf, device=dev)
     attn = torch.empty((n * t, c), dtype=bf, device=dev)
@@ -239,7 +254,8 @@ def window_block_mlp(
     """``x + fc2(GELU(fc1(LN(x))))`` per token of ``x (..., C)``, as
     :func:`window_block_mlp_reference` computes it. fc1 ``(F, C)`` /
     ``(F,)``, fc2 ``(C, F)`` / ``(C,)``. On a CUDA device: bf16 x and
-    weights, contiguous, C and F multiples of 8; anything else raises."""
+    weights, contiguous, C and F multiples of 8, C at most
+    :data:`MAX_BLOCK_WIDTH`; anything else raises."""
     if _device_of(x, "window-block MLP") == "cpu":
         return window_block_mlp_reference(
             x, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, eps
@@ -247,6 +263,7 @@ def window_block_mlp(
     c = x.shape[-1]
     hidden_dim = fc1_weight.shape[0]
     _check_width(c)
+    _check_block_width(c)
     _check_width(hidden_dim)
     rows = x.numel() // c
     bf, dev = torch.bfloat16, x.device
@@ -257,8 +274,8 @@ def window_block_mlp(
         ("fc2_weight", fc2_weight, (c, hidden_dim), bf), ("fc2_bias", fc2_bias, (c,), bf),
     ):
         _check(tensor, name, shape, dtype, dev)
-    if rows > 65535 * 128:
-        raise ValueError(f"at most 65535·128 tokens; got {rows}")
+    if rows >= 2**31:
+        raise ValueError(f"at most 2³¹ − 1 tokens; got {rows}")
     lib = kernels.load_library()
     hidden = torch.empty((rows, hidden_dim), dtype=bf, device=dev)
     out = torch.empty_like(x)

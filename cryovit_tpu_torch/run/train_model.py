@@ -17,10 +17,12 @@ from pathlib import Path
 
 import torch
 
+from cryovit_tpu_torch import require_bf16_on_cuda, resolve_device
 from cryovit_tpu_torch.callbacks import TensorBoardLogger
 from cryovit_tpu_torch.config import LOSSES, METRICS, PRECISION_DTYPES, TrainConfig
 from cryovit_tpu_torch.data import DataLoader, FileDataModule, FileDataset
 from cryovit_tpu_torch.models import CryoVIT
+from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
 from cryovit_tpu_torch.train.checkpoint import load_model, save_model
 from cryovit_tpu_torch.train.loop import Trainer
 from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
@@ -126,13 +128,19 @@ def run_training(
     ``.model`` already is the reference torch format, so ``export_torch``
     writes the same artifact again as ``<name>.torch.model``, the file name
     the JAX package's ``--export-torch`` gives it. ``config`` overrides the
-    recipe's defaults; ``num_epochs`` sets its ``max_epochs``.
+    recipe's defaults; ``num_epochs`` sets its ``max_epochs``. On a CUDA
+    device the trainer's precision must be bf16, the kernels' dtype: f32
+    raises before anything is built or written.
     """
     if ModelType(model_type) != ModelType.CRYOVIT:
         raise NotImplementedError(f"{model_type} training is not yet ported (CryoVIT only)")
+    cfg = config or TrainConfig(label_key=label_key)
+    device = resolve_device(device)
+    precision = cfg.trainer.precision
+    require_bf16_on_cuda(device, PRECISION_DTYPES[precision],
+                         f"run_training with precision {precision!r}", BF16_KERNELS)
     result_dir = Path(result_dir)
     result_dir.mkdir(parents=True, exist_ok=True)
-    cfg = config or TrainConfig(label_key=label_key)
     cfg = dataclasses.replace(
         cfg, label_key=label_key, name=model_name,
         trainer=dataclasses.replace(cfg.trainer, max_epochs=num_epochs),

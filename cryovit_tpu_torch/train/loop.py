@@ -31,8 +31,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from cryovit_tpu_torch import resolve_device
+from cryovit_tpu_torch import require_bf16_on_cuda, resolve_device
+from cryovit_tpu_torch.config import PRECISION_DTYPES
 from cryovit_tpu_torch.models.base import BaseModel, clip_gradients, prediction_mask
+from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
 from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
 from cryovit_tpu_torch.types import TomogramBatch
 
@@ -85,6 +87,8 @@ class Trainer:
         self.loggers = list(loggers)
         self.seed = seed
         self.device = resolve_device(device)
+        require_bf16_on_cuda(self.device, PRECISION_DTYPES[precision],
+                             f"Trainer(precision={precision!r})", BF16_KERNELS)
         self.model: BaseModel | None = None
         self.module: nn.Module | None = None
         self.optimizer: torch.optim.Optimizer | None = None

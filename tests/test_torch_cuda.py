@@ -229,6 +229,31 @@ def test_window_block_mlp_kernel_matches_plain(cuda, n, t, c):
     _close(wa.window_block_mlp(x, *params), wa.window_block_mlp_reference(x, *params))
 
 
+@pytest.mark.parametrize("op,n,t,c,heads,offset", [
+    ("mlp", 1, 300, 144, None, 0.0),  # 300 rows: two 128-row tiles and 44; K tail of 16
+    ("mlp", 3, 100, 704, None, 0.0),  # the widest C: 11 k chunks beside two ring stages
+    ("mlp", 2, 129, 576, None, 8.0),  # Hiera-L's stage-3 width, x offset by +8
+    ("attention", 1, 130, 216, 3, 0.0),  # 3C = 648: a ragged 144-column tile; K tail of 24
+    ("attention", 2, 256, 576, 8, 8.0),  # Hiera-L's stage-3 block, x offset by +8
+])
+def test_window_block_kernels_at_the_tile_edges(cuda, op, n, t, c, heads, offset):
+    """The wgmma products at their edges: row counts that are not a multiple
+    of the 128-row tile, C not a multiple of the 64-column k chunk (the K
+    tail, and the LayerNorm's zero-filled columns past C set back to 0),
+    ragged output tiles, the widest C the LayerNorm products take, and x
+    offset by +8, where the variance is E[x²] − mean² at a large mean."""
+    x = (_randn(cuda, n, t, c).float() + offset).bfloat16()
+    if op == "mlp":
+        params = _block_params(cuda, c, 4 * c, c)
+        got, want = wa.window_block_mlp(x, *params), wa.window_block_mlp_reference(x, *params)
+    else:
+        ln_w, ln_b, w_qkv, b_qkv, w_proj, b_proj = _block_params(cuda, c, 3 * c, c)
+        params = (ln_w, ln_b, *wa.fold_q_scale(w_qkv, b_qkv, heads), w_proj, b_proj)
+        got = wa.window_block_attention(x, *params, heads)
+        want = wa.window_block_attention_reference(x, *params, heads)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("b,t,heads,d", [(2, 1024, 8, 72), (3, 200, 1, 72), (1, 77, 2, 72),
                                         (2, 1024, 4, 96), (3, 200, 1, 96), (1, 77, 2, 96)])
 def test_window_attention_kernel_matches_plain(cuda, b, t, heads, d):
@@ -243,9 +268,10 @@ def test_window_attention_kernel_matches_plain(cuda, b, t, heads, d):
 
 
 def test_window_kernels_refuse_what_they_cannot_take(cuda):
-    """f32, head widths without a kernel and non-contiguous x raise before a
-    launch; a launch the library refuses (head width 64 past the wrapper)
-    returns an error code, and ``kernels.check`` raises on it."""
+    """f32, head widths without a kernel, non-contiguous x and C past
+    ``MAX_BLOCK_WIDTH`` raise before a launch; a launch the library refuses
+    (head width 64 past the wrapper) returns an error code, and
+    ``kernels.check`` raises on it."""
     x = _randn(cuda, 2, 128, 144)
     params = _block_params(cuda, 144, 432, 144)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -256,6 +282,9 @@ def test_window_kernels_refuse_what_they_cannot_take(cuda):
         wa.window_block_mlp(x.transpose(0, 1), *_block_params(cuda, 144, 576, 144))
     with pytest.raises(ValueError, match="head dim"):
         wa.window_attention(x[..., :128], x[..., :128], x[..., :128], 2)
+    wide = wa.MAX_BLOCK_WIDTH + 8
+    with pytest.raises(ValueError, match=f"up to {wa.MAX_BLOCK_WIDTH}"):
+        wa.window_block_mlp(_randn(cuda, 1, 8, wide), *_block_params(cuda, wide, 4 * wide, wide))
     out = torch.empty(2, 128, 128, device=cuda, dtype=torch.bfloat16)
     rc = kernels.load_library().cryovit_window_attention(
         x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 2, 128, 2, 64, 144, 128 * 144,

@@ -205,3 +205,44 @@ def test_cli_features_use_sam_refuses_to_fall_back_to_the_cpu(monkeypatch, tmp_p
     write_mrc(tmp_path / "t.mrc", np.zeros((2, 8, 8), np.uint8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["features", str(tmp_path), str(tmp_path / "out"), "--use-sam", "--random-init"])
+
+
+@pytest.mark.parametrize("device", ["cuda", None])
+def test_trainer_refuses_f32_on_cuda(monkeypatch, device):
+    """f32 training on a CUDA device (named, or the default) raises when the
+    Trainer is built, naming the decoder's bf16-only kernels, and not in the
+    middle of the first step; bf16 there and f32 on the CPU are taken."""
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match=r"conv3d_dm, conv3d_dm_dw, .*bf16 only"):
+        Trainer(precision="f32", device=device)
+    assert Trainer(precision="bf16", device=device).device.type == "cuda"
+    assert Trainer(precision="f32", device="cpu").device.type == "cpu"
+
+
+def test_run_training_refuses_f32_on_cuda_before_anything_is_built(monkeypatch, tmp_path):
+    """``run_training`` with an f32 trainer on a CUDA device raises before it
+    reads a file, builds a model or writes its result folder."""
+    from cryovit_tpu_torch.config import TrainConfig, TrainerConfig
+    from cryovit_tpu_torch.run.train_model import run_training
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = TrainConfig(label_key="mito", trainer=TrainerConfig(precision="f32"))
+    missing, out = tmp_path / "missing.hdf", tmp_path / "out"
+    with pytest.raises(ValueError, match=r"convt2x_dm_bwd\) take bf16 only"):
+        run_training([missing], [missing], ["mito"], "mito", "m", out, device="cuda", config=cfg)
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("device,dtype", [("cuda", torch.float32), ("cuda:0", torch.float32),
+                                          ("cuda", torch.float16)])
+def test_make_dinov2_refuses_another_dtype_on_cuda_before_any_weight(monkeypatch, device, dtype):
+    """``make_dinov2`` on a CUDA device in another dtype than bf16 raises,
+    naming the backbone's bf16-only kernels, before it builds a weight (the
+    empty state dict would fail the strict load after that)."""
+    from cryovit_tpu_torch.models.dinov2 import DinoV2Config, make_dinov2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match=r"flash_attention, .*residual_layernorm\) take bf16"):
+        make_dinov2({}, DinoV2Config.tiny_test(), device=device, dtype=dtype)
