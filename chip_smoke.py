@@ -24,10 +24,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    residual add; timed, never used by the port); the pair
    attention also at ViT-g's 16×4101 tokens (1024²);
    the int8 attention (``flash_attention(quant=...)``, each of qk, pv,
-   qkpv) and its scale pre-pass at ViT-g's 64×1029 and 16×4101 tokens, on
-   inputs with outliers (plain random inputs cannot tell int8 from bf16),
-   held also by the RMS of each output row's relative error, whose limit
-   must fall below the readings of planted faults in the plain version.
+   qkpv) and its two pre-pass launches (the scales, and K and V as the
+   body's operands, both bit for bit) at ViT-g's 64×1029 and 16×4101
+   tokens, on inputs with outliers (plain random inputs cannot tell int8
+   from bf16), held also by the RMS of each output row's relative error,
+   whose limit must fall below the readings of planted faults in the plain
+   version; the attention body's time split between its two passes.
    Kernel, plain and library times from CUDA events, and the least time the
    card could take (``bound_ms``); TFLOP/s on every attention row. The JSON
    rows of conv3d_dm (its six serving calls, and under ``train_step`` its
@@ -59,8 +61,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    each configuration. Last, the int8 attention's main path: the same
    weights with LayerScale 0.2 in ``DinoV2(pair_attention_fn=partial(
    flash_attention, quant=m))`` on 16 synthetic 1024² slices (4101 tokens),
-   the bf16 default first and then each mode: exactly 40 int8 attention
-   and 40 scale launches per mode (none under the default), finite
+   the bf16 default first and then each mode: exactly 40 int8 attention,
+   40 scale and 40 operand launches per mode (none under the default), finite
    features within relative L2 0.1 of the default's (a check of finiteness
    and layout: bf16-level differences move 40 blocks as far, so the kernel
    rows hold the int8 arithmetic), device ms, slices/s, peak memory.
@@ -143,10 +145,12 @@ KERNELS = {
                              "cryovit_tpu/ops/flash_attention.py:53"),
     "residual_layernorm": ("cryovit_tpu_torch/csrc/fused_norm.cu",
                            "cryovit_tpu/ops/fused_norm.py:69"),
-    "flash_attention_int8": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_int8": ("cryovit_tpu_torch/csrc/attention_int8_sm90.cu",
                              "cryovit_tpu/ops/flash_attention.py:226"),
-    "flash_attention_int8_scales": ("cryovit_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_int8_scales": ("cryovit_tpu_torch/csrc/attention_int8_sm90.cu",
                                     "cryovit_tpu/ops/flash_attention.py:386"),
+    "flash_attention_int8_operands": ("cryovit_tpu_torch/csrc/attention_int8_sm90.cu",
+                                      "cryovit_tpu/ops/flash_attention.py:393"),
 }
 DINO_KERNELS = ("flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd")
 # one train step of the decoder: 6 tail convs forward and 6 input gradients
@@ -810,15 +814,18 @@ def planted(fa, fault):
 
 
 def int8_attention_rows(dev: torch.device) -> dict[str, dict]:
-    """The int8 attention (each of ``INT8_MODES``) and its scale pre-pass
-    against their plain versions at ViT-g's 512² and 1024² shapes, on
-    outlier inputs (q ×4 with rows ≡ 3 mod 64 ×16, key 7 and value row 11
-    ×16): plain random inputs cannot tell int8 from bf16. The attention is
-    held to max|err| ≤ 2^-6·max|plain| and to ``INT8_ROW_RMS``, and each of
-    ``INT8_FAULTS`` its mode touches must read above that limit. The plain
-    version runs a few slices a call (memory); the kernel takes the whole
-    batch. The JSON rows are qkpv at 1024² (the DINOv2 int8 phase's
-    shape)."""
+    """The int8 attention (each of ``INT8_MODES``) and its two pre-pass
+    launches (the scales; K and V as the body's operands) against their
+    plain versions at ViT-g's 512² and 1024² shapes, on outlier inputs (q ×4
+    with rows ≡ 3 mod 64 ×16, key 7 and value row 11 ×16): plain random
+    inputs cannot tell int8 from bf16. The attention is held to max|err| ≤
+    2^-6·max|plain| and to ``INT8_ROW_RMS``, and each of ``INT8_FAULTS`` its
+    mode touches must read above that limit; the pre-pass outputs must
+    equal their plain versions bit for bit. The attention body's time is
+    split between its passes by the SM clocks it counts
+    (``int8_pass_clocks``). The plain version runs a few slices a call
+    (memory); the kernel takes the whole batch. The JSON rows are qkpv at
+    1024² (the DINOv2 int8 phase's shape)."""
     from cryovit_tpu_torch.ops import flash_attention as fa
 
     def nonempty(scales):  # a mode's unused scales are empty tensors
@@ -870,16 +877,7 @@ def int8_attention_rows(dev: torch.device) -> dict[str, dict]:
                                      f"fault reads within the row RMS limit: {readings}")
             int8 = products * (("qk" in quant) + ("pv" in quant))
             row = with_bound(row, io_bytes, 2 * products - int8, int8)
-            log("kernels", f"flash_attention_int8 quant={quant} {where} B={b} N={n} H={h}x{d}: "
-                f"max|err| {row['max_abs_err']:.3g} (limit {row['max_abs_limit']:.4g}), row RMS "
-                f"relative error {row['row_rms']:.4g} (limit {INT8_ROW_RMS:.4g}; planted faults "
-                f"in the plain version: {readings}), kernel {row['ms']:.3f} ms (with the scale "
-                f"pre-pass; {2 * products / row['ms'] / 1e9:.1f} TOP/s), plain "
-                f"{row['plain_ms']:.3f} ms ({per_call} slices a call), library: "
-                f"none (no PyTorch call computes int8 attention; scaled_dot_product_attention "
-                f"bf16 on the same shape {sdpa_ms:.3f} ms), bound {row['bound_ms']:.3f} ms "
-                f"({row['bound_by']})")
-            results[f"flash_attention_int8 {quant} {where}"] = row
+            attention = row
             n_out = 2 * ("qk" in quant) + ("pv" in quant)  # sq, sk / sv (the others empty)
             row = compare(
                 "flash_attention_int8_scales",
@@ -892,12 +890,46 @@ def int8_attention_rows(dev: torch.device) -> dict[str, dict]:
                 f"{row['max_abs_err']:.3g} (bit-exact required), kernel {row['ms']:.3f} ms, plain "
                 f"{row['plain_ms']:.3f} ms, library: none, bound {row['bound_ms']:.3f} ms "
                 f"({row['bound_by']})")
-            results[f"flash_attention_int8_scales {quant} {where}"] = row
+            results[f"flash_attention_int8_scales {quant} {where}"] = scales_row = row
+            sc = fa.attention_int8_scales(q, k, v, bias, h, quant=quant)
+            row = compare(
+                "flash_attention_int8_operands",
+                lambda: fa.attention_int8_operands(q, k, v, bias, h, quant=quant, scales=sc),
+                lambda: plain(fa.attention_int8_operands_reference, bias, h, quant=quant),
+                None, iters=5, rel_tols=(0.0, 0.0),
+            )
+            n_pad = -(-n // fa.KEY_TILE) * fa.KEY_TILE
+            out_bytes = b * h * n_pad * d * ((2 - ("qk" in quant)) + (2 - ("pv" in quant)))
+            row = with_bound(row, 2 * 2 * b * n * c + out_bytes, 0.0)  # k, v read; K, V written
+            log("kernels", f"flash_attention_int8_operands quant={quant} {where}: max|err| "
+                f"{row['max_abs_err']:.3g} (bit-exact required), kernel {row['ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, library: none, bound {row['bound_ms']:.3f} ms "
+                f"({row['bound_by']})")
+            results[f"flash_attention_int8_operands {quant} {where}"] = row
+            del sc
+            # the attention body alone, and its time split between its passes
+            body_ms = attention["ms"] - scales_row["ms"] - row["ms"]
+            p1, p2 = fa.int8_pass_clocks(q, k, v, bias, h, quant)
+            attention = dict(attention, body_ms=body_ms, pass1_share=p1 / (p1 + p2))
+            log("kernels", f"flash_attention_int8 quant={quant} {where} B={b} N={n} H={h}x{d}: "
+                f"max|err| {attention['max_abs_err']:.3g} (limit "
+                f"{attention['max_abs_limit']:.4g}), row RMS relative error "
+                f"{attention['row_rms']:.4g} (limit {INT8_ROW_RMS:.4g}; planted faults in the "
+                f"plain version: {readings}), kernel {attention['ms']:.3f} ms (with the pre-pass; "
+                f"{2 * products / attention['ms'] / 1e9:.1f} TOP/s; the attention body "
+                f"{body_ms:.3f} ms = total − scales − operands, pass 1 "
+                f"{100 * p1 / (p1 + p2):.1f} % of its SM clocks = {body_ms * p1 / (p1 + p2):.3f} "
+                f"ms, pass 2 {body_ms * p2 / (p1 + p2):.3f} ms), plain "
+                f"{attention['plain_ms']:.3f} ms ({per_call} slices a call), library: "
+                f"none (no PyTorch call computes int8 attention; scaled_dot_product_attention "
+                f"bf16 on the same shape {sdpa_ms:.3f} ms), bound {attention['bound_ms']:.3f} ms "
+                f"({attention['bound_by']})")
+            results[f"flash_attention_int8 {quant} {where}"] = attention
         del qkv, q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
-    results["flash_attention_int8"] = results["flash_attention_int8 qkpv 1024^2"]
-    results["flash_attention_int8_scales"] = results["flash_attention_int8_scales qkpv 1024^2"]
-    for name in ("flash_attention_int8", "flash_attention_int8_scales"):
+    for name in ("flash_attention_int8", "flash_attention_int8_scales",
+                 "flash_attention_int8_operands"):
+        results[name] = results[f"{name} qkpv 1024^2"]
         results[name]["max_abs_err"] = max(
             r["max_abs_err"] for key, r in results.items() if key.startswith(name + " "))
     return results
@@ -910,7 +942,7 @@ def int8_attention_phase(dev: torch.device, backbone) -> dict[str, int]:
     tokens), on the serving phase's weights with LayerScale raised to
     ``AGREEMENT_LAYERSCALE``; the bf16 default first (row 1's kernel at 4101
     tokens), then each of ``INT8_MODES``. Per configuration: launches (exactly
-    one int8 attention and one scale pre-pass per block under a mode, none
+    one int8 attention and one of each pre-pass launch per block under a mode, none
     under the default), finite features, cosine and relative L2 against the
     default (at most ``INT8_AGREEMENT``), device ms, peak memory, slices/s.
     Returns the launches of all four runs."""
@@ -952,7 +984,8 @@ def int8_attention_phase(dev: torch.device, backbone) -> dict[str, int]:
         peak = torch.cuda.max_memory_allocated()
         total = {k: total[k] + counts[k] for k in total}
         n_tok = feats.shape[1] + 1 + cfg.num_registers
-        want = ({"flash_attention_int8": cfg.depth, "flash_attention_int8_scales": cfg.depth}
+        want = (dict.fromkeys(("flash_attention_int8", "flash_attention_int8_scales",
+                               "flash_attention_int8_operands"), cfg.depth)
                 if quant else {"flash_attention": cfg.depth})
         want = {**dict.fromkeys(kernels.KERNELS, 0), **want}
         finite = bool(torch.isfinite(feats).all())
@@ -1350,7 +1383,8 @@ DINO_PROFILE_GROUPS = (
 
 INT8_PROFILE_GROUPS = (
     ("int8 scale pre-pass", ("attention_int8_scales",)),
-    ("port attention kernel", ("flash_attention", "attention_sm90")),
+    ("int8 operand pre-pass", ("attention_int8_operands",)),
+    ("port attention kernel", ("flash_attention", "attention_sm90", "attention_int8_sm90")),
     *DINO_PROFILE_GROUPS[:3],
     DINO_PROFILE_GROUPS[4],
 )
@@ -1681,7 +1715,8 @@ def _kernel_names(build_log: str):
     kernel = ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"((?:attention_int8_scales|attention_sm90|flash_attention"
+            m = re.search(r"((?:attention_int8_scales|attention_int8_operands"
+                          r"|attention_int8_sm90|attention_sm90|flash_attention"
                           r"|conv3d_dm_dw|conv3d_dm|convt2x_dm_bwd|convt2x_dm"
                           r"|sum_partials|window_attention|ln_gemm|residual_gemm"
                           r"|residual_layernorm)_kernel)"

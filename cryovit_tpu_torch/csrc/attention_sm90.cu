@@ -18,8 +18,8 @@
 //   D^-1/2 * log2(e), p = bf16(exp2(bf16(s - m))), the denominator summed
 //   from the bf16 probabilities.
 // One body, templated on <D, has_bias, f32_row_sum>, D the head width in
-// {64, 72, 96}. The int8 modes of row 12 keep their mma.sync body in
-// csrc/flash_attention.cu.
+// {64, 72, 96}. The int8 modes of row 12 have their own wgmma body in
+// csrc/attention_int8_sm90.cu.
 //
 // What it computes, per (batch b, head h, query row i), over keys j < kv_len:
 //   s_ij = scale_log2 * q_i . k_j                      (f32, log2 domain)

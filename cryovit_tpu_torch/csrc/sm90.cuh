@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels
-// (csrc/attention_sm90.cu, csrc/window_block.cu): mbarrier waits and
-// arrivals, TMA tile loads, named barriers, wgmma shared-memory descriptors
-// and the wgmma forms the kernels use, and cuTensorMapEncodeTiled for the
-// host side. Everything here has internal linkage: each source that
-// includes the header gets its own copy.
+// (csrc/attention_sm90.cu, csrc/attention_int8_sm90.cu, csrc/window_block.cu):
+// mbarrier waits and arrivals, TMA tile loads, named barriers, wgmma
+// shared-memory descriptors and the wgmma forms the kernels use (bf16 with
+// f32 accumulators, and s8 with s32 accumulators), and
+// cuTensorMapEncodeTiled for the host side. Everything here has internal
+// linkage: each source that includes the header gets its own copy.
 
 #pragma once
 
@@ -123,7 +124,10 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
 }
 
 // K-major operand (Q, K): rows of row_bytes, 8-row groups row_bytes * 8
-// apart; a k step of 16 columns is +32 bytes on the start address.
+// apart; a k step of 16 columns is +32 bytes on the start address. The same
+// descriptor serves 8-bit tiles, which wgmma takes K-major only: a k step of
+// 32 int8 columns is the same +32 bytes, and a 64-byte row (one head width,
+// or 64 keys of V^T, of int8) is one row of the 64-byte swizzle (layout 2).
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr, uint32_t row_bytes,
                                                  uint32_t layout) {
   return gmma_desc(addr, 16, 8 * row_bytes, layout);
@@ -306,6 +310,88 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 64) = A (64 x 16 bf16 in registers) * B (16 x 64, K-major in
+// shared memory) + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_rs_n64_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, s32) = A (64 x 32 int8 in registers) * B (32 x 64 int8,
+// K-major in shared memory) + (scale_d ? d : 0). The A fragment is that of
+// mma.sync m16n8k32 in each warp's 16 rows: register j of thread (g =
+// lane / 4, t = lane % 4) holds row g + 8 (j & 1), columns 16 (j >> 1) +
+// 4t .. + 3, the lowest column in the low byte. The sums are exact.
+__device__ __forceinline__ void wgmma_rs_s8_n64(int (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128) = A (64 x 16 bf16 in registers) * B (16 x 128, K-major in
+// shared memory) + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_rs_n128_kmajor(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // Pins accumulator registers around asynchronous wgmma (no copies of them
 // are moved across the wgmma or its wait).
 template <int N>
@@ -313,10 +399,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-// The same for register A fragments, read until the wgmma completes.
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// The same for register A fragments (M k steps), read until the wgmma
+// completes.
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < 4 * M; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -47,7 +47,7 @@ KERNELS = (  # launch-counter names
     "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
     "window_block_attention", "window_block_mlp", "window_attention",
     "flash_attention_bhnd", "flash_attention_bnhd", "residual_layernorm",
-    "flash_attention_int8", "flash_attention_int8_scales",
+    "flash_attention_int8", "flash_attention_int8_scales", "flash_attention_int8_operands",
 )
 
 _P = ctypes.c_void_p
@@ -63,10 +63,16 @@ _ARGTYPES = {
     "cryovit_attention_int8_scales": [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _P,
     ],
-    # q, k, v, bias, sq, sk, sv, out, batch, seq, heads, row_stride,
-    # batch_stride, kv_len, chunk_rows, chunks, scale_log2, mode, stream
+    # k, v, bias, sk, sv, k_op, v_op, batch, heads, row_stride, batch_stride,
+    # kv_len, n_pad, mode, stream
+    "cryovit_attention_int8_operands": [
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _P,
+    ],
+    # q, bias, sq, sk, sv, k_op, v_op, out, clocks, batch, seq, heads,
+    # row_stride, batch_stride, kv_len, chunk_rows, chunks, n_pad,
+    # scale_log2, mode, stream
     "cryovit_flash_attention_int8": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _F, _I, _P,
     ],
     # q, k, v, out, batch, seq, heads, strides (12: (batch, head, token) of
     # q, k, v, out), scale_log2, stream

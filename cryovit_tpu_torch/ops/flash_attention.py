@@ -24,10 +24,13 @@ other device. The TPU block sizes (``block_q``, ``block_k``) and
 ``interpret`` have no meaning here and are not arguments.
 
 :func:`flash_attention`'s ``quant`` modes (``"qk"``, ``"pv"``, ``"qkpv"``)
-are the JAX ``flash_attention_pairs(quant=...)`` int8 internals, run by the
-``mma.sync`` body with int8 products (``csrc/flash_attention.cu``, entry
-``cryovit_flash_attention_int8``) after a scale pre-pass
-(:func:`attention_int8_scales`). Their q scales are taken per
+are the JAX ``flash_attention_pairs(quant=...)`` int8 internals, run by a
+``wgmma`` + TMA body on the int8 tensor cores (``csrc/attention_int8_sm90.cu``,
+entry ``cryovit_flash_attention_int8``) after a two-launch pre-pass: the
+scales (:func:`attention_int8_scales`), then K and V as the body's operands,
+biased, quantized where the mode says and written once per head
+(:func:`attention_int8_operands`; under ``pv`` V is stored transposed, its
+keys permuted as :func:`pv_key_positions` says). Their q scales are taken per
 chunk of q rows whose height is the TPU kernel's automatic chunk
 (:func:`q_chunk_rows`): part of the numerics, not a tiling choice here.
 """
@@ -42,7 +45,10 @@ from cryovit_tpu_torch import kernels
 
 __all__ = [
     "HEAD_DIM",
+    "KEY_TILE",
     "QUANT_MODES",
+    "attention_int8_operands",
+    "attention_int8_operands_reference",
     "attention_int8_scales",
     "attention_int8_scales_reference",
     "flash_attention",
@@ -51,12 +57,17 @@ __all__ = [
     "flash_attention_bnhd",
     "flash_attention_bnhd_reference",
     "flash_attention_reference",
+    "int8_pass_clocks",
+    "pv_key_positions",
     "q_chunk_rows",
 ]
 
 HEAD_DIM = 64  # the head width the CUDA kernel is built for (ViT-g: 24 x 64)
 _LOG2E = 1.4426950408889634
 QUANT_MODES = ("", "qk", "pv", "qkpv")
+# keys per tile of the int8 kernel: its K and V operands hold the keys padded
+# to a multiple of it
+KEY_TILE = 64
 _INV127 = 1.0 / 127.0
 # the dequantization factor of V's ones column: its scale 1·(1/127) times
 # 1/127, in f32
@@ -278,6 +289,72 @@ def _int8_attention(q, k, v, bias, num_heads, true_len, scale, quant):
     return out.reshape(b, n, c).to(q.dtype)
 
 
+def pv_key_positions(n_keys: int, device=None) -> torch.Tensor:
+    """Where key j sits in a row of the int8 Vᵀ operand (``n_keys`` a
+    multiple of 32): within each 32-key step, key ``8m + 2t + e`` (m, t, e
+    in 0..3, 0..3, 0..1) goes to ``16·(m // 2) + 4t + 2·(m % 2) + e``. In the
+    kernel, thread t of a row quad holds the scores of keys 8m + 2t + e of
+    the step, and the 8-bit ``wgmma`` A fragment takes k indices 4t..4t+3
+    and 16+4t..16+4t+3 from it (``csrc/attention_int8_sm90.cu:pv_slot``):
+    Vᵀ stored in that order makes both operands agree on the order of the
+    sum, which is exact."""
+    j = torch.arange(n_keys, device=device)
+    w = j % 32
+    m, t, e = w // 8, (w // 2) % 4, w % 2
+    return j - w + 16 * (m // 2) + 4 * t + 2 * (m % 2) + e
+
+
+def attention_int8_operands_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    num_heads: int,
+    true_len: int | None = None,
+    quant: str = "qkpv",
+    scales: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 kernel's K and V operands, as the pre-pass writes them:
+    keys padded with zeros to ``n_pad = KEY_TILE·⌈N/KEY_TILE⌉``, keys at or
+    past ``true_len`` zero too.
+
+    - K ``(B, H, n_pad, D)``: under ``qk`` int8 ``round((k + b_k) / sk)``
+      (:func:`_int8_attention`'s ki), else bf16 ``k + b_k``;
+    - V: under ``pv`` int8 ``round((v + b_v) / sv)`` per column, transposed
+      to ``(B, H, D, n_pad)`` with its keys at :func:`pv_key_positions`,
+      else bf16 ``v + b_v`` ``(B, H, n_pad, D)``.
+
+    ``scales`` are ``(sq, sk, sv)`` as :func:`attention_int8_scales_reference`
+    returns them for the same arguments (computed when None)."""
+    _check_quant(quant)
+    if not quant:
+        raise ValueError("attention_int8_operands needs a quant mode")
+    b, n, c = k.shape
+    kv_len = n if true_len is None else true_len
+    n_pad = _round_up(n, KEY_TILE)
+    if scales is None:
+        scales = attention_int8_scales_reference(q, k, v, bias, num_heads, true_len, quant)
+    _, sk, sv = scales
+
+    def padded(x):  # (B, kv_len, H, D) → (B, H, n_pad, D), zero past kv_len
+        x = torch.cat([x, x.new_zeros(b, n_pad - kv_len, *x.shape[2:])], dim=1)
+        return x.transpose(1, 2).contiguous()
+
+    kh = _biased_heads(k, bias[1], num_heads)[:, :kv_len]
+    vh = _biased_heads(v, bias[2], num_heads)[:, :kv_len]
+    if "qk" in quant:
+        k_op = padded(_to_int8(kh, sk[:, None, :, None]).to(torch.int8))
+    else:
+        k_op = padded(kh.to(torch.bfloat16))
+    if "pv" in quant:
+        vi = padded(_to_int8(vh, sv[:, None]).to(torch.int8)).transpose(2, 3)
+        v_op = torch.empty_like(vi)
+        v_op[..., pv_key_positions(n_pad, vi.device)] = vi
+    else:
+        v_op = padded(vh.to(torch.bfloat16))
+    return k_op, v_op
+
+
 def _check_cuda_args(q, k, v, bias, num_heads, kv_len) -> None:
     tensors = {"q": q, "k": k, "v": v, "bias": bias}
     for name, t in tensors.items():
@@ -338,14 +415,7 @@ def flash_attention(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     if quant:
-        sq, sk, sv = _launch_scales(q, k, v, bias, num_heads, kv_len, quant)
-        rc = lib.cryovit_flash_attention_int8(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), sq.data_ptr(),
-            sk.data_ptr(), sv.data_ptr(), out.data_ptr(), b, n, num_heads, q.stride(1),
-            q.stride(0), kv_len, q_chunk_rows(n), sq.shape[-1], scale_log2, _mode(quant), stream,
-        )
-        kernels.check(rc, "flash_attention_int8")
-        kernels.count_launch("flash_attention_int8")
+        _launch_int8(q, k, v, bias, num_heads, kv_len, scale_log2, quant, out)
         return out
     rc = lib.cryovit_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -360,6 +430,47 @@ def flash_attention(
 def _mode(quant: str) -> int:
     """The kernels' mode bits: 1 for int8 Q·Kᵀ, 2 for int8 P·V."""
     return ("qk" in quant) | ("pv" in quant) << 1
+
+
+def _launch_int8(q, k, v, bias, num_heads, kv_len, scale_log2, quant, out, clocks=None):
+    """The pre-pass (scales, then operands) and the int8 attention into
+    ``out``; ``clocks``: None, or a zeroed int64 tensor of 2 that receives the
+    SM clocks of consumer warpgroup 0 in pass 1 and pass 2, summed over the
+    blocks (see :func:`int8_pass_clocks`)."""
+    b, n, _ = q.shape
+    scales = _launch_scales(q, k, v, bias, num_heads, kv_len, quant)
+    k_op, v_op = _launch_operands(k, v, bias, num_heads, kv_len, quant, scales)
+    sq, sk, sv = scales
+    rc = kernels.load_library().cryovit_flash_attention_int8(
+        q.data_ptr(), bias.data_ptr(), sq.data_ptr(), sk.data_ptr(), sv.data_ptr(),
+        k_op.data_ptr(), v_op.data_ptr(), out.data_ptr(),
+        None if clocks is None else clocks.data_ptr(), b, n, num_heads, q.stride(1),
+        q.stride(0), kv_len, q_chunk_rows(n), sq.shape[-1],
+        k_op.shape[2], scale_log2, _mode(quant), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(rc, "flash_attention_int8")
+    kernels.count_launch("flash_attention_int8")
+
+
+def _launch_operands(k, v, bias, num_heads, kv_len, quant, scales):
+    b, n, _ = k.shape
+    n_pad = _round_up(n, KEY_TILE)
+    dev = k.device
+    k_op = torch.empty((b, num_heads, n_pad, HEAD_DIM), device=dev,
+                       dtype=torch.int8 if "qk" in quant else torch.bfloat16)
+    if "pv" in quant:
+        v_op = torch.empty((b, num_heads, HEAD_DIM, n_pad), device=dev, dtype=torch.int8)
+    else:
+        v_op = torch.empty((b, num_heads, n_pad, HEAD_DIM), device=dev, dtype=torch.bfloat16)
+    _, sk, sv = scales
+    rc = kernels.load_library().cryovit_attention_int8_operands(
+        k.data_ptr(), v.data_ptr(), bias.data_ptr(), sk.data_ptr(), sv.data_ptr(),
+        k_op.data_ptr(), v_op.data_ptr(), b, num_heads, k.stride(1), k.stride(0), kv_len, n_pad,
+        _mode(quant), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(rc, "flash_attention_int8_operands")
+    kernels.count_launch("flash_attention_int8_operands")
+    return k_op, v_op
 
 
 def _launch_scales(q, k, v, bias, num_heads, kv_len, quant):
@@ -405,6 +516,63 @@ def attention_int8_scales(
     kv_len = q.shape[1] if true_len is None else true_len
     _check_cuda_args(q, k, v, bias, num_heads, kv_len)
     return _launch_scales(q, k, v, bias, num_heads, kv_len, quant)
+
+
+def attention_int8_operands(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    num_heads: int,
+    true_len: int | None = None,
+    quant: str = "qkpv",
+    scales: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K and V operands of :func:`attention_int8_operands_reference`;
+    on a CUDA device one launch of the operand pre-pass that
+    :func:`flash_attention` runs between its scale pre-pass and its int8
+    kernel, on ``scales`` (the scale pre-pass runs first when None), with
+    the same argument checks."""
+    _check_quant(quant)
+    if not quant:
+        raise ValueError("attention_int8_operands needs a quant mode")
+    if q.device.type == "cpu":
+        return attention_int8_operands_reference(q, k, v, bias, num_heads, true_len, quant, scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    kv_len = q.shape[1] if true_len is None else true_len
+    _check_cuda_args(q, k, v, bias, num_heads, kv_len)
+    if scales is None:
+        scales = _launch_scales(q, k, v, bias, num_heads, kv_len, quant)
+    return _launch_operands(k, v, bias, num_heads, kv_len, quant, scales)
+
+
+def int8_pass_clocks(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    num_heads: int,
+    quant: str,
+    true_len: int | None = None,
+) -> tuple[int, int]:
+    """A measurement aid: one :func:`flash_attention` call on CUDA tensors
+    whose kernel also sums, over its blocks, the SM clocks its first
+    consumer warpgroup spends in pass 1 (Q·Kᵀ and the row max; 0 without
+    int8 P·V) and in pass 2 (the rest). Their shares split the kernel's
+    time between the passes."""
+    _check_quant(quant)
+    if not quant or q.device.type != "cuda":
+        raise ValueError("int8_pass_clocks needs a quant mode and CUDA tensors")
+    b, n, c = q.shape
+    kv_len = n if true_len is None else true_len
+    _check_cuda_args(q, k, v, bias, num_heads, kv_len)
+    clocks = torch.zeros(2, dtype=torch.int64, device=q.device)
+    out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    _launch_int8(q, k, v, bias, num_heads, kv_len, float(HEAD_DIM**-0.5 * _LOG2E), quant, out,
+                 clocks)
+    p1, p2 = clocks.tolist()
+    return p1, p2
 
 
 def flash_attention_bhnd_reference(

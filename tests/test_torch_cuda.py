@@ -86,17 +86,37 @@ def _outlier_qkv(dev, b, n, heads):
 @pytest.mark.parametrize("quant", ["qk", "pv", "qkpv"])
 @pytest.mark.parametrize("b,n,heads,true_len", [(2, 37, 2, None), (3, 130, 4, 101),
                                                 (2, 520, 2, 515), (1, 1029, 24, None),
-                                                (1, 4101, 2, None)])
+                                                (2, 1029, 2, 1024), (1, 4101, 2, None),
+                                                (1, 4101, 24, 4096)])
 def test_int8_attention_kernel_matches_plain(cuda, quant, b, n, heads, true_len):
     """The int8 kernel against its plain version (exact integer products)
-    on outlier inputs, by the largest error and by every row's;
-    q chunks of 32 (N=520), 96 (1029) and 160 (4101)."""
+    on outlier inputs with biases, by the largest error and by every row's;
+    q chunks of 32 (N=520), 96 (1029) and 160 (4101), which 64-row query
+    tiles straddle; N not a multiple of 64, a ragged true_len (N − 5); a
+    second call equal bit for bit."""
     q, k, v = _outlier_qkv(cuda, b, n, heads)
     bias = _randn(cuda, 3, heads * fa.HEAD_DIM, seed=1, scale=0.5)
     got = fa.flash_attention(q, k, v, bias, heads, true_len, quant=quant)
     want = fa.flash_attention_reference(q, k, v, bias, heads, true_len, quant=quant)
     _close(got, want)
     assert row_rms(got, want) <= INT8_ROW_RMS
+    assert torch.equal(fa.flash_attention(q, k, v, bias, heads, true_len, quant=quant), got)
+
+
+@pytest.mark.parametrize("quant", ["qk", "pv", "qkpv"])
+@pytest.mark.parametrize("b,n,heads,true_len", [(2, 130, 4, 101), (1, 1029, 24, None),
+                                                (1, 4101, 2, 4096)])
+def test_int8_operands_kernel_equals_plain(cuda, quant, b, n, heads, true_len):
+    """The operand pre-pass's K and V (int8 where the mode quantizes, int8
+    Vᵀ in pv_key_positions order, zero past true_len and in the padding)
+    equal their plain twin bit for bit, on the kernel's own scales."""
+    q, k, v = _outlier_qkv(cuda, b, n, heads)
+    bias = _randn(cuda, 3, heads * fa.HEAD_DIM, seed=1, scale=0.5)
+    scales = fa.attention_int8_scales(q, k, v, bias, heads, true_len, quant)
+    got = fa.attention_int8_operands(q, k, v, bias, heads, true_len, quant, scales)
+    want = fa.attention_int8_operands_reference(q, k, v, bias, heads, true_len, quant, scales)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("quant", ["qk", "pv", "qkpv"])
@@ -111,6 +131,16 @@ def test_int8_scales_kernel_equals_plain(cuda, quant, b, n, heads, true_len):
     want = fa.attention_int8_scales_reference(q, k, v, bias, heads, true_len, quant)
     for g, w in zip(got, want, strict=True):
         assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("quant", ["qk", "pv", "qkpv"])
+def test_int8_pass_clocks_split_the_passes(cuda, quant):
+    """The kernel's clock counters: pass 1 (Q·Kᵀ and the row max) runs only
+    with int8 P·V, pass 2 always; one call of the kernel."""
+    q, k, v = _outlier_qkv(cuda, 1, 1029, 2)
+    bias = _randn(cuda, 3, 2 * fa.HEAD_DIM, seed=1, scale=0.5)
+    p1, p2 = fa.int8_pass_clocks(q, k, v, bias, 2, quant)
+    assert p2 > 0 and (p1 > 0) == ("pv" in quant)
 
 
 def test_int8_attention_refuses_what_it_cannot_take(cuda):
@@ -366,6 +396,7 @@ def test_each_launch_counts_once(cuda):
     fa.flash_attention(qc, qc, qc, _randn(cuda, 3, 128), 2, quant="qkpv")
     fa.attention_int8_scales(qc, qc, qc, _randn(cuda, 3, 128), 2, quant="pv")
     assert kernels.launch_counts() == {
+        "flash_attention_int8_operands": 1,
         "flash_attention": 0, "conv3d_dm": 1, "convt2x_dm": 2, "conv3d_dm_dw": 1,
         "convt2x_dm_bwd": 1, "window_block_attention": 1, "window_block_mlp": 1,
         "window_attention": 1, "flash_attention_bhnd": 1, "flash_attention_bnhd": 2,

@@ -16,6 +16,7 @@ from cryovit_tpu_torch.io import load_data, load_files_from_path, read_mrc, writ
 from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
 from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
 from cryovit_tpu_torch.ops.flash_attention import (
+    attention_int8_operands,
     attention_int8_scales,
     flash_attention,
     flash_attention_bhnd,
@@ -80,6 +81,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
     for quant in ("qk", "pv", "qkpv"):
         assert flash_attention(q, q, q, torch.zeros(3, 128), 2, quant=quant).shape == (2, 9, 128)
         assert len(attention_int8_scales(q, q, q, torch.zeros(3, 128), 2, quant=quant)) == 3
+        assert len(attention_int8_operands(q, q, q, torch.zeros(3, 128), 2, quant=quant)) == 2
     xw = torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32))
     ln = (torch.ones(8), torch.zeros(8))
     assert window_block_attention(xw, *ln, torch.ones(24, 8), torch.zeros(24), torch.ones(8, 8),
@@ -98,7 +100,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
         "flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "convt2x_dm_bwd",
         "window_block_attention", "window_block_mlp", "window_attention",
         "flash_attention_bhnd", "flash_attention_bnhd", "residual_layernorm",
-        "flash_attention_int8", "flash_attention_int8_scales",
+        "flash_attention_int8", "flash_attention_int8_scales", "flash_attention_int8_operands",
     }
 
 
@@ -106,7 +108,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(rng, monkeypatch):
     "op",
     ["attention", "conv3d", "convt", "conv3d_dw", "convt_bwd", "window_block", "window_mlp",
      "window_attention", "attention_bhnd", "attention_bnhd", "residual_layernorm",
-     "attention_int8", "attention_int8_scales"],
+     "attention_int8", "attention_int8_scales", "attention_int8_operands"],
 )
 def test_wrappers_refuse_devices_without_a_kernel(op):
     """A tensor on neither the CPU nor a GPU raises: there is no fallback to
@@ -123,6 +125,8 @@ def test_wrappers_refuse_devices_without_a_kernel(op):
                                                   torch.empty(3, 4, device="meta"), 1,
                                                   quant="qkpv"),
         "attention_int8_scales": lambda: attention_int8_scales(
+            x[0, 0], x[0, 0], x[0, 0], torch.empty(3, 4, device="meta"), 1),
+        "attention_int8_operands": lambda: attention_int8_operands(
             x[0, 0], x[0, 0], x[0, 0], torch.empty(3, 4, device="meta"), 1),
         "attention_bhnd": lambda: flash_attention_bhnd(x[0], x[0], x[0]),
         "attention_bnhd": lambda: flash_attention_bnhd(x[0], x[0], x[0]),

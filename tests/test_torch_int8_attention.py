@@ -120,6 +120,105 @@ def test_int8_row_limit_catches_planted_faults(monkeypatch, quant, fault):
     assert row_rms(got, want) >= 3 * INT8_ROW_RMS
 
 
+def _outlier_inputs(rng, b, n, heads):
+    """q, k, v (bf16 column views of one projection) and bias with the
+    CUDA tests' outliers: q ×4, rows ≡ 3 (mod 64) ×16, key 7 and value row 11
+    ×16."""
+    c = heads * fa.HEAD_DIM
+    qkv = rng.standard_normal((b, n, 3 * c))
+    qkv[..., :c] *= 4
+    qkv[:, 3::64, :c] *= 16
+    qkv[:, 7, c : 2 * c] *= 16
+    qkv[:, 11, 2 * c :] *= 16
+    qkv = torch.from_numpy(qkv).bfloat16()
+    bias = torch.from_numpy(rng.standard_normal((3, c)) * 0.5).bfloat16()
+    return qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :], bias
+
+
+def test_pv_key_positions_follow_the_wgmma_fragments():
+    """The int8 Vᵀ key order, derived here from the PTX ISA's fragment
+    layouts: thread t of a row quad holds the s32 scores of keys 8m + 2t + e
+    (n-tile m, e = 0, 1) of each 32-key step, the kernel packs n-tiles 0, 1
+    into A registers 0, 1 and n-tiles 2, 3 into registers 2, 3 (low byte
+    first), and the 8-bit A fragment's register j holds k indices
+    16·(j // 2) + 4t .. + 3. Key and k index must meet in Vᵀ."""
+    want = {}
+    for t in range(4):
+        for m in range(4):
+            for e in range(2):
+                reg = 2 * (m // 2)  # the row-g register of that pair of n-tiles
+                byte = 2 * (m % 2) + e
+                want[8 * m + 2 * t + e] = 16 * (reg // 2) + 4 * t + byte
+    pos = fa.pv_key_positions(96)
+    assert pos[:32].tolist() == [want[j] for j in range(32)]
+    assert (pos[32:64] - 32).tolist() == pos[:32].tolist() == (pos[64:] - 64).tolist()
+    assert sorted(pos.tolist()) == list(range(96))
+
+
+def _attention_from_operands(q, bias, heads, true_len, quant, scales, k_op, v_op):
+    """The plain int8 attention (``_int8_attention``'s formulas) recomputed
+    from the pre-pass's operands: the padding cut off and Vᵀ's keys put back
+    in order through pv_key_positions."""
+    b, n, c = q.shape
+    d = c // heads
+    kv_len = n if true_len is None else true_len
+    scale_log2 = d**-0.5 * fa._LOG2E
+    sq, sk, sv = scales
+    qh = (q + bias[0]).float().reshape(b, n, heads, d)
+    keys = k_op[:, :, :kv_len].float().transpose(1, 2).contiguous()  # (B, kv, H, D)
+    if "qk" in quant:
+        sq_rows = sq[:, :, torch.arange(n) // fa.q_chunk_rows(n)]
+        qi = torch.round(qh * (1.0 / sq_rows.transpose(1, 2)[..., None].clamp_min(1e-20)))
+        s = torch.einsum("bqhd,bkhd->bhqk", qi, keys)
+        s = s * ((sq_rows * sk[:, :, None]) * scale_log2)[..., None]
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", qh, keys) * scale_log2
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    if "pv" in quant:
+        order = fa.pv_key_positions(v_op.shape[-1])
+        vi = v_op[..., order][..., :kv_len].double().permute(0, 3, 1, 2)  # (B, kv, H, D)
+        pi = torch.round(p * 127.0).double()
+        num = torch.einsum("bhqk,bkhd->bqhd", pi, vi).float() * (sv * fa._INV127)[:, None]
+        denom = (pi.sum(dim=-1) * 127.0).float() * fa._ONES_DEQUANT
+        out = num * (1.0 / denom.transpose(1, 2))[..., None]
+    else:
+        vals = v_op[:, :, :kv_len].float().transpose(1, 2)
+        denom = p.sum(dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vals) * (1.0 / denom.transpose(1, 2))[..., None]
+    return out.reshape(b, n, c).to(q.dtype)
+
+
+@pytest.mark.parametrize("quant", MODES)
+@pytest.mark.parametrize("n,true_len", [(200, 195), (256, None)])
+def test_int8_operands_rebuild_the_plain_attention_bit_for_bit(quant, n, true_len):
+    """The plain twin of the pre-pass's K and V operands: int8 where the
+    mode quantizes (else bf16 with the bias), keys padded to KEY_TILE, zero
+    at or past true_len, int8 Vᵀ in pv_key_positions order; the plain
+    attention recomputed from them equals flash_attention_reference bit for
+    bit (N not a multiple of 64 with a ragged true_len, and a whole one)."""
+    rng = np.random.default_rng(11)
+    heads = 2
+    q, k, v, bias = _outlier_inputs(rng, 2, n, heads)
+    kv_len = n if true_len is None else true_len
+    n_pad = -(-n // fa.KEY_TILE) * fa.KEY_TILE
+    scales = fa.attention_int8_scales_reference(q, k, v, bias, heads, true_len, quant)
+    k_op, v_op = fa.attention_int8_operands(q, k, v, bias, heads, true_len, quant)
+    k_dtype = torch.int8 if "qk" in quant else torch.bfloat16
+    assert k_op.dtype == k_dtype and k_op.shape == (2, heads, n_pad, fa.HEAD_DIM)
+    if "pv" in quant:
+        assert v_op.dtype == torch.int8 and v_op.shape == (2, heads, fa.HEAD_DIM, n_pad)
+        past = v_op[..., fa.pv_key_positions(n_pad)[kv_len:]]
+    else:
+        assert v_op.dtype == torch.bfloat16 and v_op.shape == (2, heads, n_pad, fa.HEAD_DIM)
+        past = v_op[:, :, kv_len:]
+    assert not k_op[:, :, kv_len:].float().any() and not past.float().any()
+    if "qk" in quant:
+        assert k_op.abs().max() == 127  # the scale's own element
+    got = _attention_from_operands(q, bias, heads, true_len, quant, scales, k_op, v_op)
+    want = fa.flash_attention_reference(q, k, v, bias, heads, true_len, quant=quant)
+    assert torch.equal(got, want)
+
+
 def test_q_chunks_follow_the_tpu_block_choice():
     """The rows sharing a q scale are the JAX wrapper's automatic chunks
     under quant (``_auto_blocks(n, chq=32)``) at every length, and the int8
@@ -174,6 +273,10 @@ def test_quant_modes_are_checked():
             fa.flash_attention(long, long, long, torch.zeros(3, 64), 1, quant=quant)
     with pytest.raises(ValueError, match="needs a quant mode"):
         fa.attention_int8_scales(q, q, q, bias, 2, quant="")
+    with pytest.raises(ValueError, match="needs a quant mode"):
+        fa.attention_int8_operands(q, q, q, bias, 2, quant="")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.int8_pass_clocks(q, q, q, bias, 2, "qk")
 
 
 # ---- the model: DinoV2(pair_attention_fn=partial(flash_attention, quant=m)) -
