@@ -36,7 +36,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    twelve train-step calls), of convt2x_dm (its two serving calls, and
    under ``train_step`` the same two at the training crop), of
    conv3d_dm_dw (its six) and of convt2x_dm_bwd (its two) list each call;
-   convt2x_dm_bwd's dW must repeat bit for bit on a second call.
+   convt2x_dm_bwd's dW must repeat bit for bit on a second call. Rows 4 and
+   5 also at UNet3D's level 1 (128×512×512, dilation 1: conv3d_dm 1->16 and
+   16->16 forward and 16->16 input gradient, conv3d_dm_dw Ci 1 and 16 ->
+   16), listed per call under ``unet3d_step`` with that path's launches.
 4. reference — the serving path on the GPU (bf16, kernels) against the same
    path on the CPU (f32, plain versions) on a small input, once for each
    DINOv2 configuration: the default, ``pair_heads=False`` and
@@ -44,7 +47,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. train reference — one train step of the full-width decoder on a small
    input, GPU bf16 through the kernels against CPU f32 through the plain
    versions: the probabilities, the Dice loss and every parameter's
-   gradient.
+   gradient. Then the same for one UNet3D train step at full width on
+   1×32×64×64 voxels, its limits widened to twice what the CPU's own bf16
+   plain path reads against f32 where that is larger.
 6. SAM reference — the SAM2 image encoder on the GPU (bf16, kernels)
    against the CPU (f32, plain versions), seeded weights, a small config
    that opens both Hiera kernel gates, at head width 72 and again at 96:
@@ -72,7 +77,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    the port's FileDataModule, DataLoader and collate; the trained decoder
    saved as a ``.model`` and served by fused inference on the same
    tomogram. One isolated train step's launches, the step time (median of
-   5) and a profile of one step.
+   5) and a profile of one step. Then ``evaluate`` and file-based ``infer``
+   one step below their file readers: the ``.model`` reloaded in bf16,
+   ``Trainer.test`` with ``CsvWriter`` (the row's metrics against the Dice
+   and F1 recomputed in numpy from the returned predictions) and
+   ``Trainer.predict`` on the stored fp16 features against the fused
+   path's probabilities; device ms of one test and one predict step.
 9. SAM serving main path — SAM2 feature extraction (``cryovit-torch features
    --use-sam``'s extractor) on a synthetic 64×512×512 tomogram at Hiera-L
    full width, slice batch 64: the pyramids' shapes and values, each Hiera
@@ -83,6 +93,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    launches per batch), slices/s and peak memory, with the last stage's
    window 14 instead of 7 (``HIERA_T_LAST_WINDOW``: with 7 the q-pool
    block 10 fails in the JAX reference and the port alike).
+10. UNet3D training main path — ``train --model unet3d`` one step below its
+   file readers: a synthetic 128×512×512 blob tomogram's raw voxels,
+   ``Trainer.fit`` of the full-width U-Net (bf16 on f32 masters, AdamW lr
+   3e-3, SWA) for 6 epochs, its ``.model`` reloaded and scored by
+   ``Trainer.test``; one isolated step's launches (5 conv3d_dm, 3
+   conv3d_dm_dw), the step time (median of 5), voxels/s, epoch times, peak
+   memory and a profile of one step split into the port's kernels, cuDNN,
+   copies and the norm/GELU glue.
 
 Launch counters are zeroed just before each main path and read just after;
 every kernel of a path must have run (the SAM path: exactly the counts the
@@ -124,6 +142,15 @@ CONV_SHAPES = [(32, 32, 128, 8), (32, 32, 128, 4), (32, 16, 256, 2), (16, 16, 25
                (8, 8, 512, 1), (8, 1, 512, 1)]
 # (Ci, Co, H = W) of every convt2x_dm call
 CONVT_SHAPES = [(32, 32, 128), (16, 8, 256)]
+# UNet3D's level 1 at the reference crop (TRAIN_DEPTH x SIDE², dilation 1):
+# a train step's conv3d_dm calls (forward of analysis convs 1->16, 16->16 and
+# of the last synthesis conv 16->16; the input gradients of the two 16->16
+# convs whose input needs one, the first conv's input being the data) and
+# its conv3d_dm_dw calls (Ci -> Co of each conv)
+UNET_CONV_CALLS = [("forward", 1, 16), ("forward", 16, 16), ("forward", 16, 16),
+                   ("input gradient", 16, 16), ("input gradient", 16, 16)]
+UNET_DW_CALLS = [(1, 16), (16, 16), (16, 16)]
+UNET_EPOCHS = 6
 KERNELS = {
     "flash_attention": ("cryovit_tpu_torch/csrc/attention_sm90.cu",
                         "cryovit_tpu/ops/flash_attention.py:226"),
@@ -157,6 +184,13 @@ DINO_KERNELS = ("flash_attention", "conv3d_dm", "convt2x_dm", "conv3d_dm_dw", "c
 # through conv3d_dm, 6 weight gradients, 2 ConvTransposes each way
 TRAIN_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 12, "convt2x_dm": 2,
                        "conv3d_dm_dw": 6, "convt2x_dm_bwd": 2}
+UNET_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": len(UNET_CONV_CALLS),
+                      "conv3d_dm_dw": len(UNET_DW_CALLS)}
+UNET_STEP_NONZERO = {k: n for k, n in UNET_STEP_LAUNCHES.items() if n}
+# the CryoVIT .model's file-based inference against the fused path on the
+# same tomogram and weights: the largest |difference| of the probabilities
+# (so the masks agree wherever a probability lies farther from 0.5)
+PREDICT_VS_FUSED = 1e-2
 # Hiera-L's stage 3 for a batch of 64 slices at 512²: 256 windows of 16×16
 # tokens, 576 channels in 8 heads of 72, MLP 2304; and its global blocks,
 # 64 images of 32×32 tokens
@@ -298,6 +332,41 @@ def _accumulate(total: dict | None, row: dict) -> dict:
                       total["int8_ops"] + row["int8_ops"])
 
 
+def conv_flops(ci, co, side, dil, depth):
+    """Operations of a SAME 3³ conv: the depth taps whose plane is in
+    range, depth + 2·max(depth − dil, 0), times 9 lateral taps."""
+    return 2 * 9 * ci * co * side * side * (depth + 2 * max(depth - dil, 0))
+
+
+def conv_row(x, w, dil, what):
+    """conv3d_dm against its plain version and F.conv3d on x (B, D, Ci, H, W)."""
+    from cryovit_tpu_torch.ops import conv3d_dm as cd
+
+    _, depth, ci, side, _ = x.shape
+    co = w.shape[-1]
+    x_cf, w_cf = x.transpose(1, 2).contiguous(), w.permute(4, 3, 0, 1, 2).contiguous()
+    row = compare(
+        "conv3d_dm",
+        lambda: cd.conv3d_dm(x, w, (dil, 1, 1)),
+        lambda: cd.conv3d_dm_reference(x, w, (dil, 1, 1)),
+        lambda: F.conv3d(x_cf, w_cf, padding=(dil, 1, 1), dilation=(dil, 1, 1)),
+        iters=8 if depth == DEPTH else 4,
+    )
+    row = with_bound(row, 2 * (ci + co) * depth * side * side + 2 * 27 * ci * co,
+                     conv_flops(ci, co, side, dil, depth))
+    log("kernels", f"conv3d_dm {what} {ci}->{co} at {depth}x{side}^2 dil {dil}: max|err| "
+        f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+        f"library {row['library_ms']:.3f} ms (F.conv3d, channels-first bf16), "
+        f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return row
+
+
+def shape_entry(row, **shape) -> dict:
+    """One call of a kernel row's JSON list."""
+    return {**shape, **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")}}
+
+
 def kernel_phase(dev: torch.device) -> dict[str, dict]:
     from cryovit_tpu_torch.ops import conv3d_dm as cd
     from cryovit_tpu_torch.ops import convt_dm as ct
@@ -366,34 +435,6 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
     results["flash_attention"]["max_abs_err"] = max(results["flash_attention"]["max_abs_err"],
                                                     row["max_abs_err"])
     del qkv, q, k, v, qh, kh, vh
-
-    def conv_flops(ci, co, side, dil, depth):
-        # depth taps whose plane is in range: depth + 2·max(depth − dil, 0)
-        return 2 * 9 * ci * co * side * side * (depth + 2 * max(depth - dil, 0))
-
-    def conv_row(x, w, dil, what):
-        """conv3d_dm against its plain version and F.conv3d on x (B, D, Ci, H, W)."""
-        _, depth, ci, side, _ = x.shape
-        co = w.shape[-1]
-        x_cf, w_cf = cf(x), w.permute(4, 3, 0, 1, 2).contiguous()
-        row = compare(
-            "conv3d_dm",
-            lambda: cd.conv3d_dm(x, w, (dil, 1, 1)),
-            lambda: cd.conv3d_dm_reference(x, w, (dil, 1, 1)),
-            lambda: F.conv3d(x_cf, w_cf, padding=(dil, 1, 1), dilation=(dil, 1, 1)),
-            iters=8 if depth == DEPTH else 4,
-        )
-        row = with_bound(row, 2 * (ci + co) * depth * side * side + 2 * 27 * ci * co,
-                         conv_flops(ci, co, side, dil, depth))
-        log("kernels", f"conv3d_dm {what} {ci}->{co} at {depth}x{side}^2 dil {dil}: max|err| "
-            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-            f"library {row['library_ms']:.3f} ms (F.conv3d, channels-first bf16), "
-            f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
-        return row
-
-    def shape_entry(row, **shape):  # one call of a kernel row's JSON list
-        return {**shape, **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
-                                                "bound_ms", "bound_by")}}
 
     total, per_shape = None, []
     for ci, co, side, dil in CONV_SHAPES:
@@ -489,6 +530,7 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
     log("kernels", f"conv3d_dm_dw per train step (6 calls at {TRAIN_DEPTH}x{SIDE}^2): kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, library "
         f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms ({total['bound_by']})")
+    results.update(unet3d_kernel_rows(dev, randn))
 
     total, per_shape = None, []
     for ci, co, side in CONVT_SHAPES:
@@ -531,6 +573,64 @@ def kernel_phase(dev: torch.device) -> dict[str, dict]:
         "block); residual_layernorm's JSON row is the (x bf16, h bf16, gamma) call, its "
         "max|err| covers all four cases")
     torch.cuda.empty_cache()
+    return results
+
+
+def unet3d_kernel_rows(dev, randn) -> dict[str, dict]:
+    """Rows 4 and 5 at UNet3D's level-1 shapes (TRAIN_DEPTH x SIDE², dilation
+    1): each conv3d_dm call of a train step (UNET_CONV_CALLS; an input
+    gradient is the kernel on g with the taps flipped and Ci, Co swapped)
+    and each conv3d_dm_dw call (UNET_DW_CALLS), against the plain versions,
+    F.conv3d and aten.convolution_backward."""
+    from cryovit_tpu_torch.ops import conv3d_dm as cd
+
+    results = {}
+    total, per_shape = None, []
+    for call, ci, co in UNET_CONV_CALLS:
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+        if call == "input gradient":  # the conv ci -> co's dx: co -> ci
+            w, ci, co = w.flip(0, 1, 2).transpose(3, 4).contiguous(), co, ci
+        x = randn(1, TRAIN_DEPTH, ci, SIDE, SIDE)
+        row = conv_row(x, w, 1, f"UNet3D {call}")
+        total = _accumulate(total, row)
+        per_shape.append(shape_entry(row, call=call, ci=ci, co=co, side=SIDE, dil=1))
+        del x
+    results["conv3d_dm_unet3d"] = dict(total, shapes=per_shape)
+    log("kernels", f"conv3d_dm per UNet3D train step ({len(UNET_CONV_CALLS)} calls at "
+        f"{TRAIN_DEPTH}x{SIDE}^2): kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
+        f"({total['bound_by']})")
+
+    conv_bwd = torch.ops.aten.convolution_backward
+    total, per_shape = None, []
+    voxels = TRAIN_DEPTH * SIDE * SIDE
+    for ci, co in UNET_DW_CALLS:
+        x = randn(1, TRAIN_DEPTH, ci, SIDE, SIDE)
+        gy = randn(1, TRAIN_DEPTH, co, SIDE, SIDE)
+        x_cf, g_cf = x.transpose(1, 2).contiguous(), gy.transpose(1, 2).contiguous()
+        w_cf = torch.empty(co, ci, 3, 3, 3, device=dev, dtype=torch.bfloat16)
+        row = compare(
+            "conv3d_dm_dw",
+            lambda: cd.conv3d_dm_dw(x, gy),
+            lambda: cd.conv3d_dm_dw_reference(x, gy),
+            lambda: conv_bwd(g_cf, x_cf, w_cf, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                             False, [0, 0, 0], 1, [False, True, False]),
+            iters=4, rel_tols=(1e-3,),
+        )
+        row = with_bound(row, 2 * (ci + co) * voxels + 4 * 27 * ci * co,
+                         conv_flops(ci, co, SIDE, 1, TRAIN_DEPTH))
+        log("kernels", f"conv3d_dm_dw UNet3D {ci}->{co} at {TRAIN_DEPTH}x{SIDE}^2 dil 1: max|err| "
+            f"{row['max_abs_err']:.3g}, kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.3f} ms (aten.convolution_backward weight, "
+            f"channels-first bf16), bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+        total = _accumulate(total, row)
+        per_shape.append(shape_entry(row, ci=ci, co=co, side=SIDE, dil=1))
+        del x, gy, x_cf, g_cf
+    results["conv3d_dm_dw_unet3d"] = dict(total, shapes=per_shape)
+    log("kernels", f"conv3d_dm_dw per UNet3D train step ({len(UNET_DW_CALLS)} calls at "
+        f"{TRAIN_DEPTH}x{SIDE}^2): kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
+        f"({total['bound_by']})")
     return results
 
 
@@ -1092,14 +1192,7 @@ def train_reference_phase(dev: torch.device) -> None:
                             {n: p.grad.float().cpu() for n, p in model.named_parameters()})
     (p_gpu, loss_gpu, g_gpu), (p_cpu, loss_cpu, g_cpu) = out["cuda"], out["cpu"]
     dprob = (p_gpu - p_cpu).abs().max().item()
-    largest = max(g.norm().item() for g in g_cpu.values())
-    worst, worst_name = 0.0, ""
-    for name, want in g_cpu.items():
-        diff = (g_gpu[name] - want).norm().item()
-        norm = want.norm().item()
-        rel = diff / (norm if norm >= 1e-3 * largest else largest)
-        if rel > worst:
-            worst, worst_name = rel, name
+    worst, worst_name = _worst_gradient(g_gpu, g_cpu)
     log("train-ref", f"4 slices x 8x8 patches, full decoder, one step: max|dprob| {dprob:.3g} "
         f"(tol 2e-2, prob std {p_cpu.std().item():.3f}); Dice loss GPU bf16 {loss_gpu:.6f} vs "
         f"CPU f32 {loss_cpu:.6f}, |diff| {abs(loss_gpu - loss_cpu):.3g} (tol 2e-4); worst "
@@ -1111,6 +1204,77 @@ def train_reference_phase(dev: torch.device) -> None:
         raise AssertionError(f"train step loss disagrees: {loss_gpu} vs {loss_cpu}")
     if not worst <= 5e-2:
         raise AssertionError(f"gradient of {worst_name} disagrees: relative error {worst}")
+
+
+def _worst_gradient(got: dict, want: dict) -> tuple[float, str]:
+    """The largest relative L2 error of a parameter's gradient, and its
+    name: against the reference gradient's norm, or against the largest
+    gradient norm for a tensor whose reference norm is below 1e-3 of it (a
+    conv bias before a norm, whose gradient is zero up to rounding)."""
+    largest = max(g.norm().item() for g in want.values())
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        norm = w.norm().item()
+        rel = (got[name] - w).norm().item() / (norm if norm >= 1e-3 * largest else largest)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def unet3d_reference_phase(dev: torch.device) -> None:
+    """One UNet3D train step at full width on 1x32x64x64 voxels (the first 2
+    slices unlabeled), seeded weights: GPU bf16 through the kernels against
+    CPU f32 through the plain versions, and the CPU's bf16 plain path
+    against the same f32 run as the yardstick. Limits: the train reference's
+    (probabilities 2e-2, Dice loss 2e-4, each gradient 5e-2 by
+    _worst_gradient's rule) or twice the yardstick's reading, whichever is
+    larger: bf16 through three levels of InstanceNorm moves the
+    probabilities by up to 0.028 and the pool norms' gradients by 0.11 at
+    this shape on the CPU, kernels or not. The GPU step must launch
+    UNET_STEP_LAUNCHES."""
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.models.losses import dice_loss
+    from cryovit_tpu_torch.models.unet3d import make_unet3d, random_unet3d_state_dict
+
+    sd = random_unet3d_state_dict(torch.Generator().manual_seed(9))
+    gen = torch.Generator().manual_seed(10)
+    x = torch.rand(1, 32, 64, 64, 1, generator=gen)
+    label = (torch.rand(1, 32, 64, 64, generator=gen) > 0.5).to(torch.int8)
+    label[:, :2] = -1
+    cpu = torch.device("cpu")
+    out = {}
+    for what, device, dtype in (("GPU bf16", dev, torch.bfloat16),
+                                ("CPU bf16", cpu, torch.bfloat16), ("CPU f32", cpu, torch.float32)):
+        model = make_unet3d(sd, device=device, dtype=dtype, trainable=True)
+        y = label.to(device)
+        kernels.reset_launch_counts()
+        probs = model(x.to(device))
+        loss = dice_loss(probs, y, y > -1)
+        loss.backward()
+        if what == "GPU bf16":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        out[what] = (probs.detach().float().cpu(), loss.item(),
+                     {n: p.grad.float().cpu() for n, p in model.named_parameters()})
+    p_ref, loss_ref, g_ref = out["CPU f32"]
+    readings = {}
+    for what in ("GPU bf16", "CPU bf16"):
+        probs, loss, grads = out[what]
+        readings[what] = ((probs - p_ref).abs().max().item(), abs(loss - loss_ref),
+                          *_worst_gradient(grads, g_ref))
+        log("unet-ref", f"{what} vs CPU f32, 1x32x64x64 voxels, full UNet3D, one step: max|dprob| "
+            f"{readings[what][0]:.4g}, Dice loss {loss:.6f} vs {loss_ref:.6f} (|diff| "
+            f"{readings[what][1]:.3g}), worst gradient relative L2 error {readings[what][2]:.4g} "
+            f"at {readings[what][3]} over {len(g_ref)} tensors (prob std {p_ref.std().item():.3f})")
+    limits = [max(tol, 2 * r) for tol, r in zip((2e-2, 2e-4, 5e-2), readings["CPU bf16"][:3])]
+    log("unet-ref", f"limits max|dprob| {limits[0]:.4g}, loss {limits[1]:.3g}, gradient "
+        f"{limits[2]:.4g}; GPU launches {counts}")
+    gpu = readings["GPU bf16"]
+    _report_checks({
+        "GPU bf16 probabilities, loss and gradients within the limits":
+            all(r <= lim for r, lim in zip(gpu[:3], limits)),
+        f"one step launches {UNET_STEP_NONZERO} and nothing else": counts == UNET_STEP_LAUNCHES,
+    }, "UNet3D train reference")
 
 
 def _pyramid_agreement(got: list, want: list) -> list[tuple[float, float]]:
@@ -1519,6 +1683,27 @@ def blob_tomogram(rng, depth: int, side: int):
     return np.clip(vol, 0, 255).astype(np.uint8), label
 
 
+def _array_dataset(data, label, raw, paths):
+    """A FileDataset one step below its HDF5 reader, returning the arrays a
+    training-ready file would hold (``data`` (C, D, H, W) f32, the label
+    unless a file has no label file, the raw volume); the card's machine has
+    no h5py. Touches ``paths``: FileDataModule skips files that do not
+    exist."""
+    from cryovit_tpu_torch.data import FileDataset
+
+    class ArrayDataset(FileDataset):
+        def _load(self, fd):
+            return data, (label if fd.label_path is not None else None)
+
+        def _load_raw(self, fd):
+            return raw
+
+    for path in paths:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.touch()
+    return ArrayDataset
+
+
 class _Recorder:
     """Logger keeping every logged dict; callback snapshotting the weights
     of the last epoch before SWA swaps its average in."""
@@ -1575,20 +1760,8 @@ def training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     volume = tomo.astype(np.float32) / 255.0
     feature_path, label_path = workdir / "features" / "blobs.hdf", workdir / "labels" / "blobs.hdf"
     if importlib.util.find_spec("h5py") is None:
-        class ArrayDataset(FileDataset):
-            """FileDataset one step below its HDF5 reader: the arrays a
-            training-ready file would hold."""
-
-            def _load(self, fd):
-                return feats.astype(np.float32), label
-
-            def _load_raw(self, fd):
-                return volume
-
-        for path in (feature_path, label_path):
-            path.parent.mkdir(parents=True, exist_ok=True)
-            path.touch()  # FileDataModule skips files that do not exist
-        dataset_cls = ArrayDataset
+        dataset_cls = _array_dataset(feats.astype(np.float32), label, volume,
+                                     (feature_path, label_path))
         log("train", "h5py is not installed here: the dataset returns the arrays of the "
             "training-ready HDF5 (FileDataset below its reader); the loaders, collate, "
             "Trainer and .model writer are the port's own")
@@ -1671,6 +1844,204 @@ def training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     _profile(lambda: trainer.train_step(data, target), "one train step", PROFILE_GROUPS,
              "elementwise, norms, reductions, copies", name)
     _report_checks(checks, "training path")
+    del data, target, batch, trainer, module
+    torch.cuda.empty_cache()
+    eval_counts = evaluation_phase(dev, workdir, model_path, feature_path, label_path,
+                                   dataset_cls, probs)
+    return {k: counts[k] + eval_counts[k] for k in counts}
+
+
+def _dice_f1(preds, label) -> tuple[float, float]:
+    """The Dice and F1 metrics of ``models/metrics.py`` recomputed in numpy
+    on the host, over the labelled voxels (label > -1)."""
+    import numpy as np
+
+    mask = label > -1
+    y = np.where(mask, label, 0).astype(np.float64)
+    hard = ((preds >= 0.5) & mask).astype(np.float64)
+    dice = 2.0 * (y * hard).sum() / (y.sum() + hard.sum() + 1e-3)
+    h = ((preds > 0.5) & mask).astype(np.float64)
+    tp, fp, fn = (y * h).sum(), ((1 - y) * h * mask).sum(), (y * (1 - h)).sum()
+    precision, recall = tp / (tp + fp + 1e-6), tp / (tp + fn + 1e-6)
+    return dice, 2.0 * precision * recall / (precision + recall + 1e-6)
+
+
+def evaluation_phase(dev, workdir, model_path, feature_path, label_path, dataset_cls,
+                     fused_probs) -> dict[str, int]:
+    """``cryovit-torch evaluate`` and file-based ``infer`` one step below
+    their file readers: the training phase's ``.model`` reloaded from disk,
+    ``Trainer.test`` with ``CsvWriter`` over the training tomogram (its one
+    row's metrics against the Dice and F1 recomputed in numpy from the
+    returned predictions and labels, within 1e-3), then ``Trainer.predict``
+    on the stored fp16 features against the fused path's probabilities on
+    the same tomogram and weights (PREDICT_VS_FUSED). Device ms of one test
+    step and one predict step (CUDA events), host seconds of each call."""
+    import csv
+
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.callbacks import CsvWriter
+    from cryovit_tpu_torch.run.eval_model import load_for_eval
+    from cryovit_tpu_torch.run.train_model import build_file_datamodule, build_model
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    name = torch.cuda.get_device_name(0)
+    module, cfg = load_for_eval(model_path, dev)
+    csv_dir = cfg.csv_dir(workdir / "eval")
+    trainer = Trainer(**dataclasses.asdict(cfg.trainer), callbacks=[CsvWriter(csv_dir)],
+                      seed=cfg.random_seed, device=dev)
+    model = build_model(cfg)
+    test_dm = build_file_datamodule(cfg, [feature_path], [label_path], labels=["mito"],
+                                    dataset_cls=dataset_cls)
+    predict_dm = build_file_datamodule(cfg, [feature_path], dataset_cls=dataset_cls)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    (result,) = trainer.test(model, test_dm, module)
+    t_test = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (prediction,) = trainer.predict(predict_dm, module)
+    t_predict = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    batch, _ = next(iter(test_dm.test_loader()))
+    data, target = trainer.to_device(batch)
+    test_ms = time_ms(lambda: trainer.eval_step(module, model, data, target), 3)
+    predict_ms = time_ms(lambda: trainer.predict_step(module, data), 3)
+    del data, target
+
+    with open(csv_dir / f"{result.samples[0]}.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    dice, f1 = _dice_f1(result.preds[0], result.label[0])
+    probs = prediction.preds[0]
+    dprob = float(np.abs(probs - fused_probs).max())
+    agree = float(((probs >= 0.5) == (fused_probs >= 0.5)).mean())
+    log("eval", f"Trainer.test ({TRAIN_DEPTH}x{SIDE}x{SIDE}, the .model reloaded in bf16): "
+        f"{t_test:.2f} s host, one test step {test_ms:.2f} ms device (CUDA events) ({name}); "
+        f"CSV {csv_dir.name}/{result.samples[0]}.csv rows {rows}")
+    log("eval", f"metrics recomputed in numpy from the returned predictions and labels: dice "
+        f"{dice:.6f}, f1 {f1:.6f} (limit 1e-3 from the CSV's)")
+    log("eval", f"Trainer.predict on the stored fp16 features: {t_predict:.2f} s host, one "
+        f"predict step {predict_ms:.2f} ms device ({name}); against the fused path: max|dprob| "
+        f"{dprob:.4g} (limit {PREDICT_VS_FUSED}), masks agree on {100 * agree:.4f} % of voxels")
+    log("eval", f"launches during test and predict: {counts}")
+    row = rows[0] if len(rows) == 1 else {}
+    _report_checks({
+        "one CSV row, columns sample, tomo_name, dice_metric, f1_metric":
+            list(row) == ["sample", "tomo_name", "dice_metric", "f1_metric"],
+        "CSV metrics equal the numpy recomputation within 1e-3":
+            bool(row) and abs(float(row["dice_metric"]) - dice) <= 1e-3
+            and abs(float(row["f1_metric"]) - f1) <= 1e-3,
+        f"predictions {(TRAIN_DEPTH, SIDE, SIDE)} finite": probs.shape == (TRAIN_DEPTH, SIDE, SIDE)
+            and bool(np.isfinite(probs).all()),
+        "predict agrees with the fused path": dprob <= PREDICT_VS_FUSED,
+        "the decoder's forward kernels launched, no backward kernel":
+            counts["conv3d_dm"] > 0 and counts["convt2x_dm"] > 0
+            and counts["conv3d_dm_dw"] == counts["convt2x_dm_bwd"] == 0,
+    }, "evaluation path")
+    return counts
+
+
+def unet3d_training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
+    """``cryovit-torch train --model unet3d`` one step below its file
+    readers, at full width and the reference crop: a synthetic TRAIN_DEPTH x
+    SIDE² blob tomogram's raw voxels, ``Trainer.fit`` for UNET_EPOCHS epochs
+    (bf16 on f32 master weights, AdamW at lr 3e-3, SWA from 80 %, a
+    validation epoch each), the ``.model`` reloaded and scored by
+    ``Trainer.test``. One isolated step's launches (UNET_STEP_LAUNCHES),
+    the median of 5 train steps, voxels/s, epoch_time_s, peak device memory
+    and a profile of one step."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.callbacks import CsvWriter
+    from cryovit_tpu_torch.config import MODELS, TrainConfig
+    from cryovit_tpu_torch.run.eval_model import load_for_eval
+    from cryovit_tpu_torch.run.train_model import build_file_datamodule, build_model, build_trainer
+    from cryovit_tpu_torch.train.checkpoint import save_model
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    name = torch.cuda.get_device_name(0)
+    tomo, label = blob_tomogram(np.random.default_rng(17), TRAIN_DEPTH, SIDE)
+    volume = tomo.astype(np.float32) / 255.0
+    data_path, label_path = workdir / "unet_tomos" / "blobs.hdf", workdir / "unet_labels" / "blobs.hdf"
+    dataset_cls = _array_dataset(volume[None], label, volume, (data_path, label_path))
+    cfg = TrainConfig(label_key="mito", name="smoke_unet3d", model=MODELS["unet3d"])
+    cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, max_epochs=UNET_EPOCHS))
+    datamodule = build_file_datamodule(cfg, [data_path], [label_path], labels=["mito"],
+                                       dataset_cls=dataset_cls)
+    trainer = build_trainer(cfg, device=dev, root_dir=workdir)
+    rec = _Recorder(trainer)
+    trainer.loggers.append(rec)
+    log("unet3d", f"synthetic {TRAIN_DEPTH}x{SIDE}x{SIDE} blob tomogram as raw voxels (the "
+        "dataset returns the arrays of its HDF5, as in the training phase); UNet3D at full width "
+        f"(1->16->64->256, bottom 384), bf16 on f32 masters, {UNET_EPOCHS} epochs")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    module = trainer.fit(build_model(cfg), datamodule)
+    model_path = save_model("smoke_unet3d", "mito", module, workdir / "smoke_unet3d.model")
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    peak_fit = torch.cuda.max_memory_allocated()
+    eval_module, ecfg = load_for_eval(model_path, dev)
+    csv_dir = ecfg.csv_dir(workdir / "unet_eval")
+    tester = Trainer(**dataclasses.asdict(ecfg.trainer), callbacks=[CsvWriter(csv_dir)],
+                     device=dev)
+    (result,) = tester.test(build_model(ecfg), datamodule, eval_module)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    del eval_module
+
+    losses = rec.series("train_dice_loss")
+    log("unet3d", f"Trainer.fit: {UNET_EPOCHS} epochs of one {TRAIN_DEPTH}x{SIDE}x{SIDE} crop in "
+        f"{t_fit:.1f} s; train_dice_loss {' '.join(f'{v:.4f}' for v in losses)}; "
+        f"val_dice_metric {' '.join(f'{v:.4f}' for v in rec.series('val_dice_metric'))}")
+    log("unet3d", f"epoch_time_s {' '.join(f'{v:.3f}' for v in rec.series('epoch_time_s'))} "
+        f"({name})")
+    log("unet3d", f"peak device memory during fit {peak_fit / 2**30:.2f} GiB ({name})")
+    log("unet3d", f"Trainer.test on the reloaded .model: metrics {result.metrics}, losses "
+        f"{result.losses}; launches during fit, .model and test: {counts}")
+
+    batch, _ = next(iter(datamodule.train_loader()))
+    data, target = trainer.to_device(batch)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(data, target)
+    torch.cuda.synchronize()
+    step_counts = kernels.launch_counts()
+    peak_step = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(5):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(data, target)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    step_ms = statistics.median(times)
+    voxels = TRAIN_DEPTH * SIDE * SIDE
+    log("unet3d", f"train step at {TRAIN_DEPTH}x{SIDE}x{SIDE} voxels (batch 1, bf16): median of 5 "
+        f"{step_ms:.2f} ms (all {' '.join(f'{t:.2f}' for t in times)}) = "
+        f"{voxels / step_ms * 1e3 / 1e6:.1f} M voxels/s; peak device memory of one step "
+        f"{peak_step / 2**30:.2f} GiB ({name})")
+    log("unet3d", f"launches in one train step: {step_counts}")
+    _profile(lambda: trainer.train_step(data, target), "one UNet3D train step",
+             UNET_PROFILE_GROUPS, "the rest (optimizer, losses, reductions)", name)
+    _report_checks({
+        "every logged value finite": all(np.isfinite(v) for h in rec.history for v in h.values()),
+        f"{len(losses)} train steps logged": len(losses) == UNET_EPOCHS,
+        "last train_dice_loss below the first": losses[-1] < losses[0],
+        "test metrics finite": all(np.isfinite(v) for v in result.metrics.values()),
+        f"test predictions {(TRAIN_DEPTH, SIDE, SIDE)} in [0, 1]":
+            result.preds[0].shape == (TRAIN_DEPTH, SIDE, SIDE)
+            and bool(result.preds[0].min() >= 0.0 and result.preds[0].max() <= 1.0),
+        f"one train step launches {UNET_STEP_NONZERO} and nothing else":
+            step_counts == UNET_STEP_LAUNCHES,
+        "every kernel of the path launched": counts["conv3d_dm"] > 0 and counts["conv3d_dm_dw"] > 0,
+    }, "UNet3D training path")
     return counts
 
 
@@ -1679,6 +2050,19 @@ PROFILE_GROUPS = (
     ("port kernels (decoder tail)", ("conv3d_dm", "convt2x_dm", "sum_partials")),
     ("cuDNN / cuBLAS (projection, front convs)",
      ("convolve", "wgrad", "dgrad", "xmma", "cutlass", "nvjet", "gemm", "cudnn", "implicit")),
+)
+
+
+# the same for a UNet3D train step: level 1's port kernels, cuDNN's levels 2-3
+# (and the pool, ConvTranspose and 1x1 convs), copies (casts, the level-1
+# layout changes, the skip concat), then the norm and GELU glue
+UNET_PROFILE_GROUPS = (
+    ("port kernels (level-1 3^3 convs)", ("conv3d_dm", "sum_partials")),
+    ("cuDNN / cuBLAS (levels 2-3, bottom, pools, ConvTransposes, 1x1 convs)",
+     ("convolve", "wgrad", "dgrad", "xmma", "cutlass", "nvjet", "gemm", "cudnn", "implicit",
+      "conv")),
+    ("copies, casts, layout changes, concat", ("copy", "Copy", "Cat", "cat_")),
+    ("InstanceNorm / GELU glue", ("elementwise", "reduce", "Reduce", "Welford", "gelu", "Gelu")),
 )
 
 
@@ -1750,17 +2134,21 @@ def main() -> int:
     results = kernel_phase(dev)
     reference_phase(dev)
     train_reference_phase(dev)
+    unet3d_reference_phase(dev)
     sam_reference_phase(dev)
     with tempfile.TemporaryDirectory(prefix="cryovit_smoke_") as tmp:
         serving = serving_phase(dev, Path(tmp))
         training = training_phase(dev, Path(tmp))
+        torch.cuda.empty_cache()
         sam = sam_serving_phase(dev, Path(tmp))
         sam_t = sam_serving_phase(dev, Path(tmp), tiny=True)
+        torch.cuda.empty_cache()
+        unet = unet3d_training_phase(dev, Path(tmp))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": serving[name] + training[name] + sam[name] + sam_t[name],
+         "launches": serving[name] + training[name] + sam[name] + sam_t[name] + unet[name],
          **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
@@ -1779,8 +2167,14 @@ def main() -> int:
     row4 = next(r for r in report["kernels"] if r["name"] == "conv3d_dm")
     row4["shapes"] = results["conv3d_dm"]["shapes"]
     row4["train_step"] = {k: results["conv3d_dm_train_step"][k] for k in (*keys, "shapes")}
-    next(r for r in report["kernels"] if r["name"] == "conv3d_dm_dw")["shapes"] = (
-        results["conv3d_dm_dw"]["shapes"])
+    row5 = next(r for r in report["kernels"] if r["name"] == "conv3d_dm_dw")
+    row5["shapes"] = results["conv3d_dm_dw"]["shapes"]
+    # rows 4 and 5 at UNet3D's level 1: a train step's calls, one by one, and
+    # the launches of the UNet3D path
+    for row, key in ((row4, "conv3d_dm_unet3d"), (row5, "conv3d_dm_dw_unet3d")):
+        row["unet3d_step"] = {"launches": unet[row["name"]],
+                              **{k: results[key][k] for k in (*keys, "shapes")}}
+        row["max_abs_err"] = max(row["max_abs_err"], results[key]["max_abs_err"])
     # the ConvTranspose's two calls of a serving pass and of a train step,
     # and its backward's two
     row6 = next(r for r in report["kernels"] if r["name"] == "convt2x_dm")

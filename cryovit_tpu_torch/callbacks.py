@@ -1,14 +1,19 @@
 """Callbacks and loggers (port of parts of ``cryovit_tpu/callbacks.py``).
 
+- :class:`TestPredictionWriter` (reference ``models/callbacks.py:15-58``):
+  evaluation inputs, labels and probabilities in HDF5;
 - :class:`PredictionWriter` (reference ``models/callbacks.py:61-109``):
   thresholded uint8 segmentations in HDF5, byte-compatible with the
   reference layout;
+- :class:`CsvWriter` (reference ``models/callbacks.py:112-206``): per-sample
+  metrics CSVs, one row per tomogram, replaced on a rerun;
 - :class:`TensorBoardLogger`: the trainer's scalars through torch's
   ``SummaryWriter`` (``cryovit-torch train --log-training``).
 """
 
 from __future__ import annotations
 
+import csv
 import logging
 from pathlib import Path
 
@@ -18,12 +23,41 @@ from cryovit_tpu_torch.types import BatchedModelResult
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["PredictionWriter", "TensorBoardLogger", "threshold_masks"]
+__all__ = [
+    "CsvWriter",
+    "PredictionWriter",
+    "TensorBoardLogger",
+    "TestPredictionWriter",
+    "threshold_masks",
+]
 
 
 def threshold_masks(preds: np.ndarray, threshold: float) -> np.ndarray:
     """Probabilities → uint8 masks (1 where ``preds >= threshold``)."""
     return (np.asarray(preds) >= threshold).astype(np.uint8)
+
+
+class TestPredictionWriter:
+    """Writes ``<results_dir>/<sample>/<tomo_name>`` with ``data``, the
+    labels as ``<label_key>`` and the probabilities as
+    ``<label_key>_preds`` (both gzip) for every tomogram of a test batch."""
+
+    def __init__(self, results_dir: str | Path, label_key: str) -> None:
+        self.results_dir = Path(results_dir)
+        self.label_key = label_key
+
+    def on_test_batch_end(self, outputs: BatchedModelResult) -> None:
+        import h5py
+
+        for n in range(outputs.batch_size):
+            path = self.results_dir / outputs.samples[n] / outputs.tomo_names[n]
+            path.parent.mkdir(parents=True, exist_ok=True)
+            with h5py.File(path, "w") as f:
+                f.create_dataset("data", data=outputs.data[n])
+                f.create_dataset(self.label_key, data=outputs.label[n], compression="gzip")
+                f.create_dataset(
+                    f"{self.label_key}_preds", data=outputs.preds[n], compression="gzip"
+                )
 
 
 class PredictionWriter:
@@ -49,6 +83,52 @@ class PredictionWriter:
                 )
                 f.create_dataset(f"{self.label_key}_preds", data=segs, compression="gzip")
             self.result_paths.append(path)
+
+
+class CsvWriter:
+    """Per-sample CSV of test metrics: ``<results_dir>/<sample>.csv`` (or
+    ``<sample>_<split_id>.csv``) with columns ``sample, tomo_name,
+    <metrics...>[, split_id]``, one row per tomogram. A rerun replaces the
+    tomogram's row rather than adding one. Written with the ``csv`` module
+    (the JAX package uses pandas); ``pandas.read_csv`` reads the same
+    frame back."""
+
+    def __init__(self, results_dir: str | Path) -> None:
+        self.results_dir = Path(results_dir)
+        self.results_dir.mkdir(parents=True, exist_ok=True)
+
+    def on_test_batch_end(self, outputs: BatchedModelResult) -> None:
+        if outputs.batch_size != 1:
+            raise ValueError("CsvWriter takes single-tomogram batches")
+        sample, tomo_name, split_id = outputs.samples[0], outputs.tomo_names[0], outputs.split_id[0]
+        path = self.results_dir / (
+            f"{sample}.csv" if split_id is None else f"{sample}_{split_id}.csv"
+        )
+        row: dict[str, object] = {"sample": sample, "tomo_name": tomo_name, **outputs.metrics}
+        if split_id is not None:
+            row["split_id"] = split_id
+        columns, rows = list(row), []
+        if path.exists():
+            with open(path, newline="") as f:
+                reader = csv.DictReader(f)
+                columns = list(reader.fieldnames or []) + [c for c in row if c not in
+                                                           (reader.fieldnames or [])]
+                rows = list(reader)
+
+        def same_tomogram(old: dict[str, str]) -> bool:
+            if old.get("sample") != sample or old.get("tomo_name") != tomo_name:
+                return False
+            return split_id is None or "split_id" not in old or old["split_id"] == str(split_id)
+
+        kept = [r for r in rows if not same_tomogram(r)]
+        if len(kept) < len(rows):
+            logger.warning("Replacing %d existing row(s) for %s/%s split %s",
+                           len(rows) - len(kept), sample, tomo_name, split_id)
+        with open(path, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=columns if kept else list(row))
+            writer.writeheader()
+            writer.writerows(kept)
+            writer.writerow(row)
 
 
 class TensorBoardLogger:

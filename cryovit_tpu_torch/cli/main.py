@@ -1,10 +1,11 @@
 """``cryovit-torch`` command-line interface (port of ``cryovit_tpu/cli/main.py``).
 
-The verbs and flags follow the JAX package's ``cryovit``. Ported so far:
-``features`` (DINOv2 extraction, and SAM2 pyramids with ``--use-sam``),
-``train`` (CryoVIT on DINOv2 features) and ``infer --fused`` (raw tomograms
-→ masks). ``evaluate`` and file-based ``infer`` exit with a "not yet
-ported" message.
+The verbs and flags follow the JAX package's ``cryovit``: ``features``
+(DINOv2 extraction, and SAM2 pyramids with ``--use-sam``), ``train``
+(CryoVIT on DINOv2 features, or ``--model unet3d`` on raw voxels),
+``evaluate`` (a ``.model`` against labelled files → metrics CSVs) and
+``infer`` (feature or voxel files → masks, or raw tomograms → masks with
+``--fused``). ``train --model sam2|medsam`` is not ported yet.
 
 Every verb runs on the GPU unless ``--device cpu`` asks for the CPU (the
 port's counterpart of ``JAX_PLATFORMS=cpu``); without a GPU the default
@@ -43,6 +44,16 @@ def _parser() -> argparse.ArgumentParser:
                    help="Extract SAM2 feature pyramids instead of DINOv2.")
     p.add_argument("--random-init", action="store_true", help=argparse.SUPPRESS)
 
+    p = sub.add_parser("evaluate", help="Evaluate a trained model against labels.")
+    p.add_argument("test_data", help="Folder or .txt manifest of test tomograms.")
+    p.add_argument("test_labels", help="Folder or .txt manifest of label files.")
+    p.add_argument("model", help="Path to the trained .model file.")
+    p.add_argument("--labels", nargs="+", required=True,
+                   help="Label names in ascending-value order.")
+    p.add_argument("--result-folder", default=None)
+    p.add_argument("-v", "--visualize", action="store_true",
+                   help="Also save prediction HDF5s.")
+
     p = sub.add_parser("infer", help="Segment tomograms with a trained model.")
     p.add_argument("tomograms", help="Folder or .txt manifest of tomograms.")
     p.add_argument("--model", required=True, help="Path to the trained .model file.")
@@ -75,9 +86,6 @@ def _parser() -> argparse.ArgumentParser:
                    help="Also write <name>.torch.model (the same reference-format "
                         "artifact, under the JAX package's file name for it).")
 
-    p = sub.add_parser("evaluate", help="evaluate (not yet ported to cryovit_tpu_torch)")
-    p.add_argument("args", nargs=argparse.REMAINDER)
-
     for p in sub.choices.values():
         p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                        help="Where to run: the GPU (default) or the CPU.")
@@ -87,15 +95,6 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
-
-    if args.command == "evaluate" or (args.command == "infer" and not args.fused):
-        verb = "infer without --fused" if args.command == "infer" else args.command
-        print(
-            f"cryovit-torch: {verb} is not yet ported to cryovit_tpu_torch; "
-            "use the JAX package's `cryovit` for it.",
-            file=sys.stderr,
-        )
-        return _NOT_PORTED
 
     from cryovit_tpu_torch.io import load_files_from_path
 
@@ -117,8 +116,14 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.command == "train":
+        from cryovit_tpu_torch.config import MODELS
         from cryovit_tpu_torch.run.train_model import run_training
 
+        if args.model not in MODELS:
+            print(f"cryovit-torch: train --model {args.model} is not yet ported to "
+                  "cryovit_tpu_torch (cryovit and unet3d are); use the JAX package's "
+                  "`cryovit` for it.", file=sys.stderr)
+            return _NOT_PORTED
         if args.label_key not in args.labels:
             raise ValueError(f"label_key {args.label_key!r} must be one of --labels {args.labels}")
         run_training(
@@ -141,6 +146,21 @@ def main(argv: list[str] | None = None) -> int:
         )
         return 0
 
+    if args.command == "evaluate":
+        from cryovit_tpu_torch.run.eval_model import run_evaluation
+
+        csv_dir = run_evaluation(
+            test_data=load_files_from_path(Path(args.test_data)),
+            test_labels=load_files_from_path(Path(args.test_labels)),
+            labels=args.labels,
+            model_path=Path(args.model),
+            result_dir=Path(args.result_folder or "."),
+            visualize=args.visualize,
+            device=args.device,
+        )
+        print(f"metrics written under {csv_dir}")
+        return 0
+
     from cryovit_tpu_torch.run.infer_model import run_inference
 
     written = run_inference(
@@ -148,7 +168,7 @@ def main(argv: list[str] | None = None) -> int:
         model_path=Path(args.model),
         result_dir=Path(args.result_folder or "."),
         threshold=args.threshold,
-        fused=True,
+        fused=args.fused,
         random_init=args.random_init,
         device=args.device,
     )

@@ -1,11 +1,13 @@
-"""Training configuration as dataclasses (port of ``cryovit_tpu/config.py``
+"""Run configurations as dataclasses (port of ``cryovit_tpu/config.py``
 and the YAML defaults the JAX package composes for
-``compose("train_model", ["model=cryovit", "datamodule=file", ...])``).
+``compose("train_model" | "eval_model" | "infer_model", ["model=cryovit"
+| "model=unet3d", "datamodule=file", ...])``).
 
 The machine with the GPU has no pyyaml and the port reads nothing of the
-JAX package, so the defaults of ``configs/train_model.yaml``,
-``trainer/fit.yaml``, ``model/cryovit.yaml`` + ``model/default.yaml``,
-``callbacks/stochastic_weight_average.yaml``, ``datamodule/file.yaml`` and
+JAX package, so the defaults of ``configs/{train,eval,infer}_model.yaml``,
+``trainer/{fit,eval}.yaml``, ``model/{cryovit,unet3d}.yaml`` +
+``model/default.yaml``, ``callbacks/{stochastic_weight_average,csv_writer,
+test_pred_writer}.yaml``, ``datamodule/file.yaml`` and
 ``datamodule/dataloader/default.yaml`` are written out here. Overrides are
 ``dataclasses.replace`` on the node.
 """
@@ -13,6 +15,7 @@ JAX package, so the defaults of ``configs/train_model.yaml``,
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Callable
 
 import torch
@@ -22,8 +25,10 @@ from cryovit_tpu_torch.models import metrics as _metrics
 
 __all__ = [
     "DataLoaderConfig",
+    "EvalConfig",
     "LOSSES",
     "METRICS",
+    "MODELS",
     "ModelConfig",
     "PRECISION_DTYPES",
     "SWAConfig",
@@ -41,8 +46,10 @@ METRICS: dict[str, Callable] = {"dice_metric": _metrics.DiceMetric, "f1_metric":
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """``model/cryovit.yaml`` over ``model/default.yaml``."""
+    """``model/cryovit.yaml`` over ``model/default.yaml``; ``model_type`` is
+    the config group's choice (``model=cryovit``)."""
 
+    model_type: str = "cryovit"
     name: str = "CryoVIT"
     input_key: str = "dino_features"
     lr: float = 1e-4
@@ -50,6 +57,14 @@ class ModelConfig:
     losses: tuple[str, ...] = ("dice_loss",)
     metrics: tuple[str, ...] = ("dice_metric", "f1_metric")
     metric_threshold: float = 0.5
+
+
+# the ported model families' configs by ``ModelType`` value:
+# ``model/cryovit.yaml`` and ``model/unet3d.yaml``, each over ``default.yaml``
+MODELS: dict[str, ModelConfig] = {
+    "cryovit": ModelConfig(),
+    "unet3d": ModelConfig(model_type="unet3d", name="UNet3D", input_key="data", lr=3e-3),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,10 +100,11 @@ class DataLoaderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """``train_model.yaml`` with ``model=cryovit`` and ``datamodule=file``."""
+    """``train_model.yaml`` with ``model=cryovit`` (or ``model=unet3d``:
+    ``model=MODELS["unet3d"]``) and ``datamodule=file``."""
 
     label_key: str
-    name: str | None = None  # None: "file_any_cryovit_<label_key>"
+    name: str | None = None  # None: "file_any_<model type>_<label_key>"
     random_seed: int = 42
     model: ModelConfig = ModelConfig()
     trainer: TrainerConfig = TrainerConfig()
@@ -97,4 +113,35 @@ class TrainConfig:
 
     @property
     def run_name(self) -> str:
-        return self.name or f"file_any_cryovit_{self.label_key}"
+        return self.name or f"file_any_{self.model.model_type}_{self.label_key}"
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """``eval_model.yaml`` (and ``infer_model.yaml``) with
+    ``datamodule=file`` and ``trainer/eval.yaml``.
+
+    The YAML's ``additional_keys: [data]`` (the raw volume riding along to
+    the writers) is what the port's ``FileDataset`` always does outside
+    training, so it is no field here. The callbacks are ``csv_writer`` (metrics
+    under :meth:`csv_dir`) and, with ``visualize``, ``test_pred_writer``
+    (HDF5s under :meth:`predictions_dir`); ``infer_model.yaml`` has
+    neither. The trainer's precision is set from the device by the
+    runners: bf16 on a GPU, f32 on the CPU, as the JAX package evaluates a
+    loaded model in f32."""
+
+    label_key: str
+    name: str
+    model: ModelConfig = ModelConfig()
+    random_seed: int = 42
+    visualize: bool = False
+    trainer: TrainerConfig = TrainerConfig(enable_model_summary=False)
+    dataloader: DataLoaderConfig = DataLoaderConfig()
+
+    def csv_dir(self, results_dir: str | Path) -> Path:
+        """``callbacks/csv_writer.yaml``: ``<results_dir>/results/<name>``."""
+        return Path(results_dir) / "results" / self.name
+
+    def predictions_dir(self, results_dir: str | Path) -> Path:
+        """``callbacks/test_pred_writer.yaml``: ``<results_dir>/predictions/<name>``."""
+        return Path(results_dir) / "predictions" / self.name

@@ -10,6 +10,9 @@
 - :func:`cryovit_from_jax`: the JAX ``CryoVITModule`` params → the
   reference CryoVIT state dict (the layout
   ``cryovit_tpu.train.torch_export.export_cryovit_state_dict`` writes).
+- :func:`unet3d_from_jax`: the JAX ``UNet3DModule`` params → the reference
+  UNet3D state dict (the layout
+  ``cryovit_tpu.train.torch_export.export_unet3d_state_dict`` writes).
 - :func:`sam2_encoder_from_jax`: the JAX SAM2 ``ImageEncoder`` params → port
   state dict (the published sam2 names without ``image_encoder.``).
 - :func:`sam2_encoder_from_published`: a published sam2 checkpoint's
@@ -36,6 +39,7 @@ __all__ = [
     "fold_patch_embed",
     "sam2_encoder_from_jax",
     "sam2_encoder_from_published",
+    "unet3d_from_jax",
 ]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -161,28 +165,61 @@ def _convt_w(k: Any) -> np.ndarray:
     return np.ascontiguousarray(_np(k).transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1])
 
 
+# flax param trees of the 3D models → the torch weight of each kind of layer
+_WEIGHT = {
+    "conv": lambda t: _conv_w(t["kernel"]),
+    "convt": lambda t: _convt_w(t["kernel"]),
+    "dense": lambda t: np.ascontiguousarray(_np(t["kernel"]).T),
+    "norm": lambda t: _np(t["scale"]),  # GroupNorm scale → norm weight
+}
+
+
+def _emit(out: dict, prefix: str, tree: dict, kind: str) -> None:
+    out[f"{prefix}.weight"] = _WEIGHT[kind](tree)
+    out[f"{prefix}.bias"] = _np(tree["bias"])
+
+
 def cryovit_from_jax(params: dict) -> dict[str, np.ndarray]:
     """JAX ``CryoVITModule`` params → reference CryoVIT state dict."""
     params = _params(params)
     out: dict[str, np.ndarray] = {}
-
-    def emit(prefix: str, tree: dict, weight) -> None:
-        out[f"{prefix}.weight"] = weight(tree)
-        out[f"{prefix}.bias"] = _np(tree["bias"])
-
-    conv = lambda t: _conv_w(t["kernel"])  # noqa: E731
-    convt = lambda t: _convt_w(t["kernel"])  # noqa: E731
-    norm = lambda t: _np(t["scale"])  # noqa: E731
-    emit("layers.0", params["Conv_0"], conv)
+    _emit(out, "layers.0", params["Conv_0"], "conv")
     for i in range(4):
         block = params[f"SynthesisBlock_{i}"]
         base = f"layers.{2 + i}.layers"
-        emit(f"{base}.0", block["GroupNorm_0"], norm)
-        emit(f"{base}.1", block["Conv_0"], conv)
-        emit(f"{base}.3", block["Conv_1"], conv)
-        emit(f"{base}.5", block["ConvTranspose_0"], convt)
-    emit("output_layer.0", params["Conv_1"], conv)
-    emit("output_layer.2", params["Conv_2"], conv)
+        _emit(out, f"{base}.0", block["GroupNorm_0"], "norm")
+        _emit(out, f"{base}.1", block["Conv_0"], "conv")
+        _emit(out, f"{base}.3", block["Conv_1"], "conv")
+        _emit(out, f"{base}.5", block["ConvTranspose_0"], "convt")
+    _emit(out, "output_layer.0", params["Conv_1"], "conv")
+    _emit(out, "output_layer.2", params["Conv_2"], "conv")
+    return out
+
+
+def unet3d_from_jax(params: dict) -> dict[str, np.ndarray]:
+    """JAX ``UNet3DModule`` params → reference UNet3D state dict (flax
+    GroupNorm with one group per channel is the reference's affine
+    InstanceNorm3d; a Dense kernel is the projection's Linear)."""
+    params = _params(params)
+    out: dict[str, np.ndarray] = {}
+    for i in range(3):
+        block, base = params[f"AnalysisBlock_{i}"], f"analysis_layers.{i}"
+        for name, key, kind in (("layers.0", "Conv_0", "conv"), ("layers.1", "GroupNorm_0", "norm"),
+                                ("layers.3", "Conv_1", "conv"), ("layers.4", "GroupNorm_1", "norm"),
+                                ("pool.0", "Conv_2", "conv"), ("pool.1", "GroupNorm_2", "norm")):
+            _emit(out, f"{base}.{name}", block[key], kind)
+    for name, key, kind in (("0", "Conv_0", "conv"), ("1", "GroupNorm_0", "norm"),
+                            ("3", "Conv_1", "conv"), ("4", "GroupNorm_1", "norm")):
+        _emit(out, f"bottom_layer.{name}", params[key], kind)
+    for i in range(3):
+        block, base = params[f"SynthesisBlock_{i}"], f"synthesis_layers.{i}"
+        for name, key, kind in (
+            ("upconv.0", "ConvTranspose_0", "convt"), ("upconv.1", "GroupNorm_0", "norm"),
+            ("layers.0.proj", "Dense_0", "dense"), ("layers.1", "GroupNorm_1", "norm"),
+            ("layers.3", "Conv_0", "conv"), ("layers.4", "GroupNorm_2", "norm"),
+        ):
+            _emit(out, f"{base}.{name}", block[key], kind)
+    _emit(out, "output_layer", params["Conv_2"], "conv")
     return out
 
 

@@ -20,7 +20,8 @@ __all__ = ["FileDataModule"]
 class FileDataModule:
     """Zips data paths and label paths into :class:`FileData` (reference
     ``file_datamodule.py``): skips missing files with a warning; validation
-    falls back to the training files."""
+    falls back to the training files; testing and prediction run over the
+    data files in order, unshuffled."""
 
     def __init__(
         self,
@@ -69,3 +70,9 @@ class FileDataModule:
             logger.warning("No validation data provided, using training data.")
             files = self.data_files
         return self._loader(files, False, "validation")
+
+    def test_loader(self):
+        return self._loader(self.data_files, False, "testing")
+
+    def predict_loader(self):
+        return self._loader(self.data_files, False, "prediction")

@@ -98,8 +98,9 @@ class FileDataset:
     def __len__(self) -> int:
         return len(self.files)
 
-    def _load(self, fd: FileData) -> tuple[np.ndarray, np.ndarray]:
-        """``(data (C, D, H, W) f32, label (D, H, W))`` of one file."""
+    def _load(self, fd: FileData) -> tuple[np.ndarray, np.ndarray | None]:
+        """``(data (C, D, H, W) f32, label (D, H, W))`` of one file; the
+        label is None when the file has no label file."""
         if fd.tomo_path in self._key_cache:
             data, _ = load_data(fd.tomo_path, key=self._key_cache[fd.tomo_path])
         else:
@@ -111,7 +112,7 @@ class FileDataset:
             labels = load_labels(fd.label_path, label_keys=fd.labels, key=self.label_key)
             label = labels[self.label_key]
         else:
-            label = np.zeros(data.shape[-3:], dtype=np.int8)
+            label = None
         return data, label
 
     def _load_raw(self, fd: FileData) -> np.ndarray:
@@ -130,6 +131,8 @@ class FileDataset:
             self.input_key or "data",
         )
         if self.train:
+            if label is None:
+                label = np.zeros(data.shape[-3:], dtype=np.int8)
             data_cl, label = random_crop(
                 data_cl,
                 label,
@@ -140,6 +143,12 @@ class FileDataset:
         else:
             # the raw volume rides along for writers and visualisation
             aux["data"] = data[0] if self.input_key == "data" else self._load_raw(fd)
+            if label is None:
+                # no labels: zeros on the raw volume's voxel grid, to which
+                # the predictions are cropped. The JAX package takes the
+                # input's grid, which for features is the patch grid and
+                # crops the masks to it (ROADMAP.md C4).
+                label = np.zeros(aux["data"].shape, dtype=np.int8)
 
         return TomogramData(
             sample=fd.sample or "",

@@ -1,5 +1,5 @@
-"""Model families. Ported so far: the CryoVIT decoder over DINOv2 features
-(``UNet3D`` and ``SAM2`` are not ported yet)."""
+"""Model families: the CryoVIT decoder over DINOv2 features and the 3D
+U-Net baseline on raw voxels (the ``SAM2`` family is not ported yet)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ from cryovit_tpu_torch.models import losses, metrics
 from cryovit_tpu_torch.models.base import BaseModel, prediction_mask
 from cryovit_tpu_torch.models.cryovit import CryoVIT as CryoVITModule
 from cryovit_tpu_torch.models.cryovit import make_cryovit, random_cryovit_state_dict
+from cryovit_tpu_torch.models.unet3d import PAD_MULTIPLE, make_unet3d, random_unet3d_state_dict
+from cryovit_tpu_torch.models.unet3d import UNet3D as UNet3DModule
 from cryovit_tpu_torch.types import ModelType
 
 __all__ = [
@@ -17,6 +19,9 @@ __all__ = [
     "CryoVIT",
     "CryoVITModule",
     "ModelType",
+    "PAD_MULTIPLE",
+    "UNet3D",
+    "UNet3DModule",
     "losses",
     "metrics",
     "prediction_mask",
@@ -41,3 +46,23 @@ class CryoVIT(BaseModel):
         if state_dict is None:
             state_dict = random_cryovit_state_dict(generator, in_channels or 1536)
         return make_cryovit(state_dict, device=device, dtype=self.dtype, trainable=True)
+
+
+class UNet3D(BaseModel):
+    """End-to-end 3D U-Net on raw voxels (reference ``models/unet3d.py``)."""
+
+    model_type = ModelType.UNET3D
+
+    def build_module(
+        self,
+        state_dict: dict[str, torch.Tensor] | None,
+        device: torch.device,
+        generator: torch.Generator | None = None,
+        in_channels: int | None = None,
+    ) -> nn.Module:
+        """The trainable U-Net (f32 parameters, computing in ``dtype``) with
+        ``state_dict``, or with weights drawn from ``generator`` by flax's
+        init laws (``in_channels`` is always 1: raw voxels)."""
+        if state_dict is None:
+            state_dict = random_unet3d_state_dict(generator)
+        return make_unet3d(state_dict, device=device, dtype=self.dtype, trainable=True)

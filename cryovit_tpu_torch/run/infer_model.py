@@ -1,13 +1,22 @@
-"""Inference runner (port of ``cryovit_tpu/run/infer_model.py``), fused path.
+"""Inference runner (port of ``cryovit_tpu/run/infer_model.py``).
 
-Raw tomograms → DINOv2 → CryoVIT decoder → thresholded uint8 HDF5 masks.
+Tomograms → thresholded uint8 HDF5 masks, two ways:
+
+- fused (``fused=True``, CryoVIT only): raw tomograms → DINOv2 → CryoVIT
+  decoder, the features never leaving the device;
+- file-based: each file's model input (stored DINOv2 features for CryoVIT,
+  raw voxels for UNet3D) through ``FileDataModule.predict_loader`` and
+  ``Trainer.predict``, written by :class:`PredictionWriter`.
+
 The JAX package composes a YAML config here; the port takes explicit
 arguments with the same defaults (the DINOv2 weights directory is
-``run.dino_features.default_model_dir()``, ``$CRYOVIT_MODEL_DIR/DINOv2``).
+``run.dino_features.default_model_dir()``, ``$CRYOVIT_MODEL_DIR/DINOv2``)
+and :class:`cryovit_tpu_torch.config.EvalConfig` for ``infer_model.yaml``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from collections.abc import Iterator
 from pathlib import Path
@@ -22,7 +31,10 @@ from cryovit_tpu_torch.io import load_data
 from cryovit_tpu_torch.models.dinov2 import DinoV2Config
 from cryovit_tpu_torch.models.fused import FusedDinoCryoVIT
 from cryovit_tpu_torch.run.dino_features import load_extractor
+from cryovit_tpu_torch.run.eval_model import load_for_eval
+from cryovit_tpu_torch.run.train_model import build_file_datamodule
 from cryovit_tpu_torch.train.checkpoint import load_model
+from cryovit_tpu_torch.train.loop import Trainer
 from cryovit_tpu_torch.types import BatchedModelResult, ModelType
 
 logger = logging.getLogger(__name__)
@@ -96,6 +108,26 @@ def _run_fused_inference(
     return writer.result_paths
 
 
+def _run_file_inference(
+    data: list[Path],
+    model_path: Path,
+    result_dir: Path,
+    threshold: float,
+    device: torch.device | str | None,
+) -> list[Path]:
+    """Feature or voxel files → ``Trainer.predict`` → thresholded
+    segmentations (reference ``run/infer_model.py:49-67``)."""
+    device = resolve_device(device)
+    module, cfg = load_for_eval(model_path, device)
+    writer = PredictionWriter(results_dir=result_dir, label_key=cfg.label_key,
+                              threshold=threshold)
+    trainer = Trainer(**dataclasses.asdict(cfg.trainer), callbacks=[writer],
+                      seed=cfg.random_seed, device=device)
+    trainer.predict(build_file_datamodule(cfg, data), module)
+    logger.info("wrote %d segmentations under %s", len(writer.result_paths), result_dir)
+    return writer.result_paths
+
+
 def run_inference(
     data: list[Path],
     model_path: Path,
@@ -109,14 +141,16 @@ def run_inference(
     dtype: torch.dtype | None = None,
     slice_batch: int = 64,
 ) -> list[Path]:
-    """Segment raw tomograms with a ``.model`` artifact → thresholded uint8
-    HDF5s (reference ``run/infer_model.py:18-85``). Only the fused path
-    (``fused=True``: the backbone runs on the raw slices, no feature files)
-    is ported so far."""
+    """Segment tomograms with a ``.model`` artifact → thresholded uint8
+    HDF5s under ``result_dir`` (reference ``run/infer_model.py:18-85``).
+
+    ``fused=True`` runs the backbone on raw tomograms (CryoVIT only; the
+    backbone options ``model_dir``, ``random_init``, ``dino_cfg``,
+    ``slice_batch`` and ``dtype`` apply to it). Otherwise each file holds
+    the model's input (``dino_features`` or ``data``) and the model runs in
+    the device's dtype (bf16 on a GPU, f32 on the CPU)."""
     if not fused:
-        raise NotImplementedError(
-            "file-based inference is not yet ported; use fused=True (--fused)"
-        )
+        return _run_file_inference(data, model_path, Path(result_dir), threshold, device)
     segmenter, label_key = load_fused(
         model_path, model_dir, random_init, dino_cfg, device, dtype, slice_batch
     )

@@ -3,9 +3,11 @@
 Trains a model on explicit tomogram and label files and writes a
 distributable ``.model`` artifact in the reference torch format, which
 ``cryovit-torch infer --fused``, the JAX package and the reference stack
-all read. The JAX package composes a YAML config here; the port builds the
+all read: the CryoVIT decoder on DINOv2 features, or the U-Net on raw
+voxels. The JAX package composes a YAML config here; the port builds the
 same recipe from :class:`cryovit_tpu_torch.config.TrainConfig`. The
-experiment-mode ``run_trainer`` (splits CSV) is not ported yet.
+experiment-mode ``run_trainer`` (splits CSV) and the SAM2 families are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,9 +21,9 @@ import torch
 
 from cryovit_tpu_torch import require_bf16_on_cuda, resolve_device
 from cryovit_tpu_torch.callbacks import TensorBoardLogger
-from cryovit_tpu_torch.config import LOSSES, METRICS, PRECISION_DTYPES, TrainConfig
+from cryovit_tpu_torch.config import LOSSES, METRICS, MODELS, PRECISION_DTYPES, TrainConfig
 from cryovit_tpu_torch.data import DataLoader, FileDataModule, FileDataset
-from cryovit_tpu_torch.models import CryoVIT
+from cryovit_tpu_torch.models import BaseModel, CryoVIT, UNet3D
 from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
 from cryovit_tpu_torch.train.checkpoint import load_model, save_model
 from cryovit_tpu_torch.train.loop import Trainer
@@ -33,10 +35,13 @@ logger = logging.getLogger(__name__)
 __all__ = ["build_file_datamodule", "build_model", "build_trainer", "run_training"]
 
 
-def build_model(cfg: TrainConfig) -> CryoVIT:
+_FAMILIES = {"cryovit": CryoVIT, "unet3d": UNet3D}
+
+
+def build_model(cfg: TrainConfig) -> BaseModel:
     """The model family of ``cfg.model``, computing in the trainer's precision."""
     m = cfg.model
-    return CryoVIT(
+    return _FAMILIES[m.model_type](
         name=m.name,
         input_key=m.input_key,
         lr=m.lr,
@@ -56,7 +61,8 @@ def build_file_datamodule(
     labels: list[str] | None = None,
     dataset_cls: type[FileDataset] = FileDataset,
 ) -> FileDataModule:
-    """CLI-mode :class:`FileDataModule` (reference ``run/train_model.py:82-92``)."""
+    """CLI-mode :class:`FileDataModule` (reference ``run/train_model.py:82-92``)
+    for a training or evaluation config."""
     dl = cfg.dataloader
     return FileDataModule(
         data_paths=data_paths,
@@ -128,13 +134,16 @@ def run_training(
     ``.model`` already is the reference torch format, so ``export_torch``
     writes the same artifact again as ``<name>.torch.model``, the file name
     the JAX package's ``--export-torch`` gives it. ``config`` overrides the
-    recipe's defaults; ``num_epochs`` sets its ``max_epochs``. On a CUDA
-    device the trainer's precision must be bf16, the kernels' dtype: f32
-    raises before anything is built or written.
+    recipe's defaults (by default that of ``model_type``); ``num_epochs``
+    sets its ``max_epochs``. On a CUDA device the trainer's precision must be
+    bf16, the kernels' dtype: f32 raises before anything is built or
+    written.
     """
-    if ModelType(model_type) != ModelType.CRYOVIT:
-        raise NotImplementedError(f"{model_type} training is not yet ported (CryoVIT only)")
-    cfg = config or TrainConfig(label_key=label_key)
+    if ModelType(model_type).value not in MODELS:
+        raise NotImplementedError(
+            f"{model_type} training is not yet ported (cryovit and unet3d only)"
+        )
+    cfg = config or TrainConfig(label_key=label_key, model=MODELS[ModelType(model_type).value])
     device = resolve_device(device)
     precision = cfg.trainer.precision
     require_bf16_on_cuda(device, PRECISION_DTYPES[precision],

@@ -31,9 +31,13 @@ from typing import Any
 import torch
 
 from cryovit_tpu_torch.models.cryovit import CryoVIT, make_cryovit
+from cryovit_tpu_torch.models.unet3d import UNet3D, make_unet3d
 from cryovit_tpu_torch.types import ModelType
 
 __all__ = ["load_model", "reference_model_cfg", "save_model"]
+
+# the model families whose .model artifacts the port reads and writes
+_MODULES = {ModelType.CRYOVIT: (CryoVIT, make_cryovit), ModelType.UNET3D: (UNet3D, make_unet3d)}
 
 
 class _Stub:
@@ -106,12 +110,12 @@ def load_model(
     model_path: str | Path,
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
-) -> tuple[CryoVIT, ModelType, str, str]:
+) -> tuple[CryoVIT | UNet3D, ModelType, str, str]:
     """Read a reference-format ``.model`` artifact.
 
     Returns ``(model, model_type, name, label_key)``; ``model`` is the
-    decoder with its weights on ``device`` in ``dtype``. Only CryoVIT models
-    are ported so far.
+    CryoVIT decoder or the U-Net with its weights on ``device`` in ``dtype``
+    (the SAM2 families are not ported yet).
     """
     model_path = Path(model_path)
     if not model_path.exists():
@@ -129,24 +133,30 @@ def load_model(
             "format), which cannot be read without flax; export it with "
             "cryovit_tpu.train.torch_export.save_torch_model first."
         )
-    if model_type != ModelType.CRYOVIT:
-        raise NotImplementedError(f"{model_type.value} models are not yet ported (CryoVIT only)")
+    if model_type not in _MODULES:
+        raise NotImplementedError(
+            f"{model_type.value} models are not yet ported (CryoVIT and UNet3D only)"
+        )
     sd = {str(k): v for k, v in dict(raw.weights).items()}
-    model = make_cryovit(sd, device=device, dtype=dtype)
+    model = _MODULES[model_type][1](sd, device=device, dtype=dtype)
     return model, model_type, str(raw.name), str(raw.label_key)
 
 
 def reference_model_cfg(model_type: ModelType) -> dict[str, Any]:
-    """The reference's composed ``cfg.model`` for CryoVIT as a plain dict
-    (reference ``configs/model/cryovit.yaml`` + ``default.yaml``). The
+    """The reference's composed ``cfg.model`` for CryoVIT or UNet3D as a
+    plain dict (reference ``configs/model/{cryovit,unet3d}.yaml`` +
+    ``default.yaml``; ``cryovit_tpu/train/torch_export.py:169-190``). The
     reference loader instantiates the model from it."""
-    if model_type != ModelType.CRYOVIT:
+    if model_type == ModelType.CRYOVIT:
+        head = {"_target_": "cryovit.models.CryoVIT", "name": "CryoVIT",
+                "input_key": "dino_features", "lr": 1e-4}
+    elif model_type == ModelType.UNET3D:
+        head = {"_target_": "cryovit.models.UNet3D", "name": "UNet3D",
+                "input_key": "data", "lr": 3e-3}
+    else:
         raise NotImplementedError(f"{model_type.value} models are not yet ported")
     return {
-        "_target_": "cryovit.models.CryoVIT",
-        "name": "CryoVIT",
-        "input_key": "dino_features",
-        "lr": 1e-4,
+        **head,
         "model_dir": None,
         "weight_decay": 1e-3,
         "losses": {"dice_loss": {"_target_": "cryovit.models.losses.DiceLoss"}},
@@ -237,12 +247,14 @@ class _DeferredOmegaConf:
 def save_model(
     model_name: str,
     label_key: str,
-    model: CryoVIT,
+    model: CryoVIT | UNet3D,
     save_path: str | Path,
 ) -> Path:
     """Write ``model`` as a reference-format ``.model`` artifact (the format
     of ``cryovit_tpu.train.torch_export.save_torch_model``): f32 CPU tensors
-    under the reference's parameter names."""
+    under the reference's parameter names, the model type and config of its
+    family."""
+    model_type = next(t for t, (cls, _) in _MODULES.items() if isinstance(model, cls))
     sd = OrderedDict(
         (k, v.detach().to("cpu", torch.float32).contiguous())
         for k, v in model.state_dict().items()
@@ -253,11 +265,9 @@ def save_model(
         artifact = stubs.SavedModel()
         artifact.__dict__.update(
             name=model_name,
-            model_type=stubs.ModelType(ModelType.CRYOVIT.value),
+            model_type=stubs.ModelType(model_type.value),
             label_key=label_key,
-            model_cfg=_DeferredOmegaConf(
-                reference_model_cfg(ModelType.CRYOVIT), stubs.OmegaConf.create
-            ),
+            model_cfg=_DeferredOmegaConf(reference_model_cfg(model_type), stubs.OmegaConf.create),
             weights=sd,
         )
         buf = io.BytesIO()

@@ -10,13 +10,16 @@ Replaces PyTorch Lightning (reference ``BaseTrainer`` config and the
 - callbacks (:class:`~cryovit_tpu_torch.train.swa.StochasticWeightAveraging`
   and any ``on_train_epoch_end``), loggers' ``log_scalars``, and an optional
   ``last.ckpt`` (``torch.save`` of model, optimizer, epoch and step) to
-  resume from.
+  resume from;
+- :meth:`Trainer.test` and :meth:`Trainer.predict`: a model's losses,
+  metrics and predictions over a datamodule's test or prediction loader, in
+  ``torch.inference_mode``, unpadded to each tomogram's shape and handed to
+  the callbacks' ``on_test_batch_end`` / ``on_predict_batch_end``.
 
 The logged names are the JAX package's: ``train_<loss>``,
 ``train_<metric>``, ``grad_norm_preclip``, ``grad_norm``, ``epoch_*``,
 ``val_*`` and ``epoch_time_s``. Not ported yet: the device mesh
-(``shard_map`` data parallelism), ``prepare_inputs`` (SAM2), and
-``test``/``predict``.
+(``shard_map`` data parallelism) and ``prepare_inputs`` (SAM2).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from cryovit_tpu_torch.config import PRECISION_DTYPES
 from cryovit_tpu_torch.models.base import BaseModel, clip_gradients, prediction_mask
 from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
 from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
-from cryovit_tpu_torch.types import TomogramBatch
+from cryovit_tpu_torch.types import BatchedModelResult, TomogramBatch, TomogramData
 
 logger = logging.getLogger(__name__)
 
@@ -145,6 +148,118 @@ class Trainer:
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1
         return {k: v / max(count, 1) for k, v in sums.items()}
+
+    # ---- test / predict -----------------------------------------------------
+
+    def _eval_module(self, module: nn.Module | None) -> nn.Module:
+        """``module``, or the one :meth:`fit` trained, in eval mode on the
+        trainer's device. It computes in its own dtype: the runners load a
+        ``.model`` in the trainer's precision."""
+        module = module if module is not None else self.module
+        if module is None:
+            raise ValueError("no module: pass one, or call fit first")
+        device = next(module.parameters()).device
+        if device.type != self.device.type:
+            raise ValueError(f"the module is on {device}, the trainer on {self.device}")
+        return module.eval()
+
+    def _aux_mask(
+        self, model: BaseModel, batch: TomogramBatch, items: Sequence[TomogramData]
+    ) -> torch.Tensor | None:
+        """Ground-truth mito mask for granule/cristae evaluation (reference
+        ``base_model.py:91-112`` + ``test_step``): applied when every item's
+        aux data carries ``labels/mito`` and the model does not turn
+        ``use_mito_mask`` off."""
+        if not model.custom_kwargs.get("use_mito_mask", True):
+            return None
+        masks = []
+        for item in items:
+            src = (item.aux_data or {}).get("labels/mito")
+            if src is None:
+                return None
+            m = np.zeros(batch.label.shape[1:], dtype=np.int8)
+            m[: src.shape[0], : src.shape[1], : src.shape[2]] = src
+            masks.append(m)
+        return torch.from_numpy(np.stack(masks)).to(self.device)
+
+    @torch.inference_mode()
+    def eval_step(
+        self, module: nn.Module, model: BaseModel, data: torch.Tensor, label: torch.Tensor,
+        aux_mask: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+        """Predictions, losses and metrics of a batch on the device."""
+        preds = module(data)
+        mask = prediction_mask(label, aux_mask)
+        return preds, model.compute_losses(preds, label, mask), model.compute_metrics(preds, label, mask)
+
+    @torch.inference_mode()
+    def predict_step(self, module: nn.Module, data: torch.Tensor) -> torch.Tensor:
+        return module(data)
+
+    def test(
+        self, model: BaseModel, datamodule, module: nn.Module | None = None
+    ) -> list[BatchedModelResult]:
+        """``model``'s losses and metrics on each batch of the datamodule's
+        test loader, with ``module`` (default: the module :meth:`fit`
+        trained). Each batch's result goes to the callbacks'
+        ``on_test_batch_end``."""
+        module = self._eval_module(module)
+        results = []
+        for batch, items in datamodule.test_loader():
+            data, label = self.to_device(batch)
+            preds, losses, metrics = self.eval_step(
+                module, model, data, label, self._aux_mask(model, batch, items)
+            )
+            result = self._build_result(preds.float().cpu().numpy(), losses, metrics, items)
+            for cb in self.callbacks:
+                if hasattr(cb, "on_test_batch_end"):
+                    cb.on_test_batch_end(result)
+            results.append(result)
+        return results
+
+    def predict(self, datamodule, module: nn.Module | None = None) -> list[BatchedModelResult]:
+        """Predictions for each batch of the datamodule's prediction loader;
+        each batch's result goes to the callbacks' ``on_predict_batch_end``.
+        (The JAX package's ``predict`` takes the model family too, for
+        SAM2's ``prepare_inputs``; nothing here needs it.)"""
+        module = self._eval_module(module)
+        results = []
+        for batch, items in datamodule.predict_loader():
+            data = torch.from_numpy(np.ascontiguousarray(batch.data)).to(self.device)
+            preds = self.predict_step(module, data)
+            result = self._build_result(preds.float().cpu().numpy(), {}, {}, items)
+            for cb in self.callbacks:
+                if hasattr(cb, "on_predict_batch_end"):
+                    cb.on_predict_batch_end(result)
+            results.append(result)
+        return results
+
+    @staticmethod
+    def _build_result(
+        preds: np.ndarray,
+        losses: dict[str, Any],
+        metrics: dict[str, Any],
+        items: Sequence[TomogramData],
+    ) -> BatchedModelResult:
+        """Unpad each tomogram's predictions back to its label's shape."""
+        pred_list, data_list, label_list = [], [], []
+        for i, item in enumerate(items):
+            d, h, w = item.label.shape
+            pred_list.append(preds[i, :d, :h, :w])
+            label_list.append(item.label)
+            aux = item.aux_data or {}
+            data_list.append(np.asarray(aux.get("data", item.data[..., 0])))
+        return BatchedModelResult(
+            batch_size=len(items),
+            samples=[it.sample for it in items],
+            tomo_names=[it.tomo_name for it in items],
+            split_id=[it.split_id for it in items],
+            data=data_list,
+            label=label_list,
+            preds=pred_list,
+            losses={k: float(v) for k, v in losses.items()},
+            metrics={k: float(v) for k, v in metrics.items()},
+        )
 
     def _log(self, step: int, logs: dict[str, Any]) -> None:
         scalars = {k: float(v) for k, v in logs.items()}

@@ -342,6 +342,9 @@ def test_window_kernels_refuse_what_they_cannot_take(cuda):
         (24, 16, 1, 5, 5, 16, 1),  # Ci = 24, padded to 32 in the kernel
         (1, 32, 1, 4, 5, 64, 2),
         (32, 1, 1, 4, 3, 13, 1),  # W % 8 != 0 at Ci = 32
+        # UNet3D's level 1: the first conv 1 -> 16, the others 16 -> 16
+        (1, 16, 1, 6, 21, 72, 1),
+        (16, 16, 1, 7, 33, 80, 1),
     ],
 )
 def test_conv3d_kernel_matches_plain(cuda, ci, co, b, d, h, w, dil):
@@ -416,6 +419,9 @@ def test_each_launch_counts_once(cuda):
         (8, 1, 4, 4, 128, 6),  # dilation 6 >= D = 4
         (32, 32, 12, 10, 128, 8),  # decoder width: 32 -> 32, dilation 8, 128-wide
         (8, 8, 70, 2, 64, 1),  # a depth chain of 70 planes: three segments of 32
+        # UNet3D's level 1: Ci 1 and 16 -> 16 at dilation 1
+        (1, 16, 6, 9, 72, 1),
+        (16, 16, 6, 10, 64, 1),
     ],
 )
 def test_conv3d_dw_kernel_matches_plain(cuda, ci, co, d, h, w, dil):
@@ -498,6 +504,52 @@ def test_decoder_gradients_match_plain_versions_on_the_gpu(cuda, monkeypatch):
     for name, w in want.items():
         rel = (got[name] - w).norm() / w.norm().clamp_min(1e-12)
         assert rel.item() <= 2e-2, (name, rel.item())
+
+
+def test_unet3d_train_step_matches_the_cpu(cuda):
+    """One UNet3D train step (full width, 1x16x32x32 voxels, masked Dice)
+    in bf16 through the kernels against CPU f32 through the plain versions:
+    probabilities, loss and each gradient (relative L2; against the largest
+    norm for a tensor whose norm is below 1e-3 of it) within the train
+    reference's limits (2e-2, 2e-4, 5e-2) or twice the CPU bf16 plain path's
+    own error against f32, whichever is larger (chip_smoke.py's rule); the
+    step launches conv3d_dm 5 times and conv3d_dm_dw 3 times."""
+    from cryovit_tpu_torch.models.losses import dice_loss
+    from cryovit_tpu_torch.models.unet3d import make_unet3d, random_unet3d_state_dict
+
+    sd = random_unet3d_state_dict(torch.Generator().manual_seed(9))
+    gen = torch.Generator().manual_seed(10)
+    x = torch.rand(1, 16, 32, 32, 1, generator=gen)
+    label = (torch.rand(1, 16, 32, 32, generator=gen) > 0.5).to(torch.int8)
+    label[:, 0] = -1
+    cpu = torch.device("cpu")
+    out = {}
+    for device, dtype in ((cuda, torch.bfloat16), (cpu, torch.bfloat16), (cpu, torch.float32)):
+        model = make_unet3d(sd, device=device, dtype=dtype, trainable=True)
+        y = label.to(device)
+        kernels.reset_launch_counts()
+        probs = model(x.to(device))
+        loss = dice_loss(probs, y, y > -1)
+        loss.backward()
+        if device.type == "cuda":
+            counts = kernels.launch_counts()
+        out[(device.type, dtype)] = (probs.detach().float().cpu(), loss.item(),
+                                     {n: p.grad.float().cpu() for n, p in model.named_parameters()})
+    p_ref, loss_ref, g_ref = out[("cpu", torch.float32)]
+    largest = max(g.norm().item() for g in g_ref.values())
+
+    def errors(key):
+        probs, loss, grads = out[key]
+        worst = max((grads[n] - w).norm().item()
+                    / (w.norm().item() if w.norm().item() >= 1e-3 * largest else largest)
+                    for n, w in g_ref.items())
+        return (probs - p_ref).abs().max().item(), abs(loss - loss_ref), worst
+
+    limits = [max(tol, 2 * e) for tol, e in zip((2e-2, 2e-4, 5e-2),
+                                                 errors(("cpu", torch.bfloat16)))]
+    got = errors(("cuda", torch.bfloat16))
+    assert all(e <= lim for e, lim in zip(got, limits)), (got, limits)
+    assert counts["conv3d_dm"] == 5 and counts["conv3d_dm_dw"] == 3
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):

@@ -167,17 +167,68 @@ def test_hdf_roundtrip_picks_the_most_unique_key(tmp_path, rng):
     np.testing.assert_array_equal(data, vol)
 
 
-@pytest.mark.parametrize(
-    "argv",
-    [
-        ["infer", "dir", "--model", "m", "--device", "cpu"],
-        ["evaluate", "a", "b", "m.model"],
-        ["infer", "dir", "--model", "m"],
-    ],
-)
-def test_cli_verbs_not_yet_ported_exit_with_a_message(argv, capsys):
+@pytest.mark.parametrize("family", ["sam2", "medsam"])
+def test_cli_verbs_not_yet_ported_exit_with_a_message(family, capsys, tmp_path):
+    """``train --model sam2|medsam`` (the SAM2 families, not ported yet)
+    exits 2 and says so, before anything is read or built."""
+    argv = ["train", str(tmp_path), str(tmp_path), "mito", "--labels", "mito",
+            "--model", family, "--device", "cpu"]
     assert main(argv) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def _eval_files(root):
+    """A reference-format CryoVIT ``.model`` (8 feature channels, seeded
+    weights) and one 4x32x32 tomogram's feature file and label file."""
+    import h5py
+
+    from cryovit_tpu_torch.models.cryovit import make_cryovit, random_cryovit_state_dict
+    from cryovit_tpu_torch.train.checkpoint import save_model
+
+    rng = np.random.default_rng(0)
+    for sub in ("tomos", "labels"):
+        (root / sub).mkdir()
+    with h5py.File(root / "tomos" / "t.hdf", "w") as f:
+        f.create_dataset("data", data=rng.random((4, 32, 32)).astype(np.float32))
+        f.create_dataset("dino_features", data=rng.standard_normal((8, 4, 2, 2)).astype(np.float16))
+    with h5py.File(root / "labels" / "t.hdf", "w") as f:
+        f.create_dataset("mito", data=rng.integers(0, 2, (4, 32, 32)).astype(np.int8))
+    sd = random_cryovit_state_dict(torch.Generator().manual_seed(0), in_channels=8)
+    save_model("m", "mito", make_cryovit(sd), root / "m.model")
+    return root / "tomos", root / "labels", root / "m.model"
+
+
+def _eval_argv(verb, tomos, labels, model, out):
+    if verb == "evaluate":
+        return ["evaluate", str(tomos), str(labels), str(model), "--labels", "mito",
+                "--result-folder", str(out)]
+    return ["infer", str(tomos), "--model", str(model), "--result-folder", str(out)]
+
+
+@pytest.mark.parametrize("verb", ["evaluate", "infer"])
+def test_cli_evaluate_and_file_infer_refuse_to_fall_back_to_the_cpu(verb, monkeypatch, tmp_path):
+    """``evaluate`` and ``infer`` without ``--fused`` default to the GPU:
+    without one they raise, naming ``--device cpu``, before writing
+    anything."""
+    argv = _eval_argv(verb, *_eval_files(tmp_path), tmp_path / "out")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_evaluate_and_file_infer_run_on_the_cpu(tmp_path):
+    """With ``--device cpu`` both verbs run: a metrics CSV with one row, and
+    one uint8 mask on the tomogram's voxel grid."""
+    import h5py
+
+    files = _eval_files(tmp_path)
+    assert main(_eval_argv("evaluate", *files, tmp_path / "eval") + ["--device", "cpu"]) == 0
+    rows = (tmp_path / "eval" / "results" / "m" / "tomos.csv").read_text().splitlines()
+    assert rows[0] == "sample,tomo_name,dice_metric,f1_metric" and len(rows) == 2
+    assert main(_eval_argv("infer", *files, tmp_path / "infer") + ["--device", "cpu"]) == 0
+    with h5py.File(tmp_path / "infer" / "t.hdf") as f:
+        assert f["mito_preds"].dtype == np.uint8 and f["mito_preds"].shape == (4, 32, 32)
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
