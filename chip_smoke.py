@@ -53,7 +53,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. SAM reference — the SAM2 image encoder on the GPU (bf16, kernels)
    against the CPU (f32, plain versions), seeded weights, a small config
    that opens both Hiera kernel gates, at head width 72 and again at 96:
-   cosine and relative L2 error per FPN level.
+   cosine and relative L2 error per FPN level. Then one SAM2 train step at
+   ``SAM2Config.tiny_test()``'s widths and 256² on 1×32×256×256 blob
+   voxels (two cond slices), GPU bf16 against CPU f32: probabilities, loss
+   (Dice + prompt loss) and per group of trained leaves (LoRA factors,
+   prompt predictor, no-memory embedding, other SAM2 embeddings) the
+   gradient's direction and size, each limit the train reference's or twice
+   the larger of two yardsticks (CPU bf16; CPU f32 on the input + 1e-3
+   noise), printed beside it; planted zero and sign-flipped gradients must
+   fail the limits in every group.
 7. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
    the full-width DINOv2 ViT-g/14 with seeded random weights and a seeded
    CryoVIT decoder saved as a ``.model``; fused inference (raw tomogram →
@@ -101,6 +109,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    conv3d_dm_dw), the step time (median of 5), voxels/s, epoch times, peak
    memory and a profile of one step split into the port's kernels, cuDNN,
    copies and the norm/GELU glue.
+11. SAM2 training main path — ``train --model sam2`` one step below its
+   file readers: a synthetic 128×512×512 blob tomogram's raw voxels,
+   ``Trainer.fit`` of ``SAM2Config.large()`` (sam2.1_hiera_l at 512², LoRA
+   r = α = 128) at full width, bf16 on f32 masters, AdamW lr 5e-5 and
+   prompt_lr 1e-4, batch 1, cond slices [1, 1] / [True, False], for
+   SAM2_EPOCHS epochs, the frozen Hiera-L run live on every step; the
+   ``.model`` reloaded and run by one ``Trainer.test`` and one
+   ``Trainer.predict``. One isolated step's launches (exactly 64/64/6 of
+   rows 9/10/11: two 64-slice encoder chunks), the step time (median of
+   5), the step split into encoder forward / heads forward / heads backward
+   / optimizer (device and host ms), profiles of the encoder forward and of
+   a whole step (device busy share), peak memory, epoch times, device ms of
+   one test and one predict step.
 
 Launch counters are zeroed just before each main path and read just after;
 every kernel of a path must have run (the SAM path: exactly the counts the
@@ -114,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -187,6 +209,12 @@ TRAIN_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 12, "convt2x_dm
 UNET_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": len(UNET_CONV_CALLS),
                       "conv3d_dm_dw": len(UNET_DW_CALLS)}
 UNET_STEP_NONZERO = {k: n for k, n in UNET_STEP_LAUNCHES.items() if n}
+# one SAM2 train step on the 128-slice crop: the frozen Hiera-L runs live in
+# two 64-slice chunks, each launching rows 9, 10, 11 as a serving batch does
+# (SAM_BATCH_LAUNCHES below); the heads have no kernel
+SAM2_EPOCHS = 3
+SAM2_STEP_NONZERO = {"window_block_attention": 64, "window_block_mlp": 64, "window_attention": 6}
+SAM2_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), **SAM2_STEP_NONZERO}
 # the CryoVIT .model's file-based inference against the fused path on the
 # same tomogram and weights: the largest |difference| of the probabilities
 # (so the masks agree wherever a probability lies farther from 0.5)
@@ -1661,9 +1689,10 @@ def _report_checks(checks: dict[str, bool], what: str) -> None:
         raise AssertionError(f"{what} checks failed")
 
 
-def blob_tomogram(rng, depth: int, side: int):
+def blob_tomogram(rng, depth: int, side: int, unlabeled: int = 16):
     """Bright ellipsoid blobs (~+120) on noise (60 ± 20) as uint8, and the
-    blob mask as int8 labels with the first 16 slices unlabeled (−1)."""
+    blob mask as int8 labels with the first ``unlabeled`` slices unlabeled
+    (−1)."""
     import numpy as np
 
     vol = rng.normal(60.0, 20.0, size=(depth, side, side)).astype(np.float32)
@@ -1679,7 +1708,7 @@ def blob_tomogram(rng, depth: int, side: int):
         mask[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] |= inside
     vol[mask] += 120.0
     label = mask.astype(np.int8)
-    label[:16] = -1
+    label[:unlabeled] = -1
     return np.clip(vol, 0, 255).astype(np.uint8), label
 
 
@@ -1900,14 +1929,14 @@ def evaluation_phase(dev, workdir, model_path, feature_path, label_path, dataset
     (result,) = trainer.test(model, test_dm, module)
     t_test = time.perf_counter() - t0
     t0 = time.perf_counter()
-    (prediction,) = trainer.predict(predict_dm, module)
+    (prediction,) = trainer.predict(predict_dm, module, model)
     t_predict = time.perf_counter() - t0
     counts = kernels.launch_counts()
 
     batch, _ = next(iter(test_dm.test_loader()))
     data, target = trainer.to_device(batch)
     test_ms = time_ms(lambda: trainer.eval_step(module, model, data, target), 3)
-    predict_ms = time_ms(lambda: trainer.predict_step(module, data), 3)
+    predict_ms = time_ms(lambda: trainer.predict_step(module, data, model), 3)
     del data, target
 
     with open(csv_dir / f"{result.samples[0]}.csv", newline="") as f:
@@ -2045,6 +2074,359 @@ def unet3d_training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     return counts
 
 
+def _sam2_family(dtype, **custom):
+    """The SAM2 family at ``default_sam.yaml``'s settings (lr 5e-5,
+    prompt_lr 1e-4, cond slices [1, 1] / [True, False]), Dice loss and
+    metric, computing in ``dtype``; ``custom`` overrides custom_kwargs."""
+    from cryovit_tpu_torch.models import SAM2
+    from cryovit_tpu_torch.models.losses import DiceLoss
+    from cryovit_tpu_torch.models.metrics import DiceMetric
+
+    return SAM2(name="SAM2", input_key="data", lr=5e-5, losses={"dice_loss": DiceLoss()},
+                metrics={"dice_metric": DiceMetric(0.5)}, dtype=dtype,
+                custom_kwargs={"prompt_lr": 1e-4, "num_init_cond_slices": (1, 1),
+                               "rand_init_cond_slices": (True, False), **custom})
+
+
+SAM2_REF_SIDE, SAM2_REF_DEPTH = 256, 32
+
+
+def _group_agreement(got: dict, want: dict, names: list[str]) -> tuple[float, float]:
+    """(1 − cosine, |ln(norm ratio)|) of the gradient of ``names`` taken as
+    one vector: its direction and its size against the reference's. A zero
+    gradient reads (1, inf), a sign-flipped one (2, 0)."""
+    a = torch.cat([got[n].double().flatten() for n in names])
+    b = torch.cat([want[n].double().flatten() for n in names])
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0.0:
+        return 1.0, math.inf
+    return 1.0 - (a @ b).item() / (na * nb), abs(math.log(na / nb))
+
+
+def sam2_reference_phase(dev: torch.device) -> None:
+    """One SAM2 train step at ``SAM2Config.tiny_test()``'s widths and
+    SAM2_REF_SIDE² (a 64² stride-4 level: the prompt predictor's U-Net keeps
+    2×4×4 voxels at its bottom) on SAM2_REF_DEPTH slices of a blob
+    tomogram's raw voxels (the first slice unlabeled; LoRA rank 128; two
+    cond slices, 0 and 3, first), seeded weights with the LoRA B factors
+    and the object-score bias moved off their initial values so both factors
+    and the masks carry signal: GPU bf16 against CPU f32, with two
+    yardsticks against the same f32 run: the CPU's bf16 plain path, and CPU
+    f32 on the input plus seeded noise of 1e-3 (a quarter of a grey level),
+    which reads how far the step itself moves under a change that small.
+
+    Readings: max|dprob|, |dloss| (Dice + mask_loss) and, per group of
+    trained leaves (LoRA factors, prompt predictor, the no-memory embedding,
+    the other SAM2 embeddings), the group gradient's direction (1 − cosine)
+    and size (|ln norm ratio|) against f32 (_group_agreement). Limits: the
+    train reference's (2e-2, 2e-4, 5e-2, 5e-2) or twice the larger
+    yardstick reading, whichever is larger. Groups, not single tensors, are
+    held: bf16 moves single prompt-predictor and embedding gradients by
+    about 1 relative L2 or more (ten conv + instance-norm layers in the
+    backward), as far as a zero gradient, while each group's direction
+    stays within 0.03 of f32's. The no-memory embedding stands alone: it
+    feeds only the two cond slices, and under the input noise its gradient
+    moves in f32 alone (on an H100's host: norm 1.22×, 1 − cos 0.30, every
+    other group under 0.014), which would widen the limits of the
+    embeddings around it. The limits must reject a
+    planted zero gradient and a sign-flipped GPU gradient in every group. A
+    gradient a yardstick blew up (not finite, or beyond 1e3 × its group's
+    largest f32 value) is named and left out of its readings; the GPU's
+    must have none."""
+    import numpy as np
+
+    from cryovit_tpu_torch.models.base import prediction_mask
+    from cryovit_tpu_torch.models.sam2.model import random_sam2_state_dict
+
+    def family(dtype):
+        fam = _sam2_family(dtype, test_config=True, num_init_cond_slices=(2, 1))
+        fam.sam_cfg = dataclasses.replace(fam.sam_cfg, image_size=SAM2_REF_SIDE)
+        return fam
+
+    sd = random_sam2_state_dict(family(torch.float32).sam_cfg, torch.Generator().manual_seed(31))
+    gen = torch.Generator().manual_seed(32)
+    for k in sd:
+        if k.endswith(".w_b.weight"):
+            sd[k] = 0.02 * torch.randn(sd[k].shape, generator=gen)
+    sd["model.sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(3.0)
+    tomo, label = blob_tomogram(np.random.default_rng(33), SAM2_REF_DEPTH, SAM2_REF_SIDE,
+                                unlabeled=1)
+    x = torch.from_numpy(tomo.astype(np.float32) / 255.0)[None, ..., None]
+    noisy = x + 1e-3 * torch.randn(x.shape, generator=torch.Generator().manual_seed(34))
+    label = torch.from_numpy(label)[None]
+    inputs = {"order": [0, 3] + [i for i in range(SAM2_REF_DEPTH) if i not in (0, 3)],
+              "num_cond": 2}
+    cpu = torch.device("cpu")
+    out = {}
+    yardsticks = ("CPU bf16", "CPU f32, input + 1e-3 noise")
+    for what, device, dtype, vox in (("GPU bf16", dev, torch.bfloat16, x),
+                                     ("CPU bf16", cpu, torch.bfloat16, x),
+                                     ("CPU f32", cpu, torch.float32, x),
+                                     (yardsticks[1], cpu, torch.float32, noisy)):
+        fam = family(dtype)
+        module = fam.build_module(sd, device)
+        y = label.to(device)
+        preds, aux = fam.apply_with_aux(module, {"slices": vox.to(device), **inputs})
+        losses = fam.compute_losses(preds, y, prediction_mask(y), aux=aux)
+        losses["total"].backward()
+        out[what] = (preds.detach().float().cpu(), losses["total"].item(),
+                     {n: p.grad.float().cpu() for n, p in module.named_parameters()
+                      if p.grad is not None})
+    p_ref, loss_ref, g_ref = out["CPU f32"]
+
+    def group(n):
+        if n.endswith((".w_a.weight", ".w_b.weight")):
+            return "LoRA factors"
+        if n == "model.no_mem_embed":
+            return "no-memory embedding"
+        return "prompt predictor" if n.startswith("prompt_predictor.") else "SAM2 embeddings"
+
+    groups = sorted({group(n) for n in g_ref})
+    largest = {g: max(g_ref[n].abs().max().item() for n in g_ref if group(n) == g) for g in groups}
+
+    def kept(grads):
+        return [n for n in g_ref if bool(torch.isfinite(grads[n]).all())
+                and grads[n].abs().max().item() <= 1e3 * largest[group(n)]]
+
+    def readings(probs, loss, grads, names):
+        r = [(probs - p_ref).abs().max().item(), abs(loss - loss_ref)]
+        for g in groups:
+            r += _group_agreement(grads, g_ref, [n for n in names if group(n) == g])
+        return r
+
+    shape = f"1x{SAM2_REF_DEPTH}x{SAM2_REF_SIDE}x{SAM2_REF_SIDE}"
+    kept_names, read = {}, {}
+    for what in ("GPU bf16", *yardsticks):
+        probs, loss, grads = out[what]
+        kept_names[what] = kept(grads)
+        if len(kept_names[what]) < len(g_ref):
+            log("sam2-ref", f"{what}: gradients blown up (left out of its readings): "
+                f"{sorted(set(g_ref) - set(kept_names[what]))}")
+        read[what] = readings(probs, loss, grads, kept_names[what])
+        log("sam2-ref", f"{what} vs CPU f32, SAM2 tiny_test widths at {SAM2_REF_SIDE}² on {shape} "
+            f"blob voxels, one train step: max|dprob| {read[what][0]:.4g}, loss {loss:.6f} vs "
+            f"{loss_ref:.6f} (|diff| {read[what][1]:.3g}), gradient per group (1 - cos, "
+            "|ln norm ratio|): " + ", ".join(
+                f"{g} {read[what][2 + 2 * i]:.4g} {read[what][3 + 2 * i]:.4g}"
+                for i, g in enumerate(groups)) + f" (prob std {p_ref.std().item():.3f})")
+    tols = (2e-2, 2e-4) + (5e-2, 5e-2) * len(groups)
+    limits = [max(tol, 2 * r, 2 * q) for tol, r, q in zip(tols, *(read[y] for y in yardsticks))]
+    log("sam2-ref", f"limits (the train reference's, or twice the larger yardstick): max|dprob| "
+        f"{limits[0]:.4g}, loss {limits[1]:.3g}, gradients " + ", ".join(
+            f"{g} {limits[2 + 2 * i]:.4g} {limits[3 + 2 * i]:.4g}" for i, g in enumerate(groups)))
+
+    # the limits' power: a zero and a sign-flipped GPU gradient, one group at
+    # a time, must each read beyond a limit of that group
+    g_gpu = out["GPU bf16"][2]
+    caught = {}
+    for fault, change in (("zero", torch.zeros_like), ("sign-flipped", torch.neg)):
+        for i, g in enumerate(groups):
+            planted = {n: change(v) if group(n) == g else v for n, v in g_gpu.items()}
+            r = readings(*out["GPU bf16"][:2], planted, list(g_ref))[2 + 2 * i: 4 + 2 * i]
+            caught[f"{fault} {g}"] = any(v > lim for v, lim in zip(r, limits[2 + 2 * i: 4 + 2 * i]))
+    log("sam2-ref", "planted faults read beyond a limit: "
+        + ", ".join(f"{k} {v}" for k, v in caught.items()))
+    _report_checks({
+        "GPU bf16 probabilities, loss and trained gradients within the limits":
+            all(r <= lim for r, lim in zip(read["GPU bf16"], limits)),
+        "the limits reject a zero and a sign-flipped gradient in every group": all(caught.values()),
+        "probabilities vary (the gate passes masks)": float(p_ref.std()) > 1e-3,
+        "LoRA A and B factors both get gradients": all(
+            float(g_ref[n].norm()) > 0 for n in g_ref if n.endswith((".w_a.weight", ".w_b.weight"))),
+        "GPU probabilities finite and no gradient blown up":
+            bool(np.isfinite(out["GPU bf16"][0].numpy()).all())
+            and len(kept_names["GPU bf16"]) == len(g_ref),
+    }, "SAM2 train reference")
+
+
+def sam2_training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
+    """``cryovit-torch train --model sam2`` one step below its file readers,
+    at full width and the reference crop: a synthetic TRAIN_DEPTH x SIDE²
+    blob tomogram's raw voxels; ``Trainer.fit`` of SAM2Config.large()
+    (sam2.1_hiera_l at 512², d_model 256, LoRA r = α = 128) for SAM2_EPOCHS
+    epochs, bf16 on f32 masters, AdamW lr 5e-5 and prompt_lr 1e-4, batch 1,
+    cond slices [1, 1] / [True, False], the frozen encoder run live on every
+    step (no cached pyramids), seeded weights (the object-score bias at +3);
+    the ``.model`` saved, reloaded and run by one
+    ``Trainer.test`` and one ``Trainer.predict``. Then one isolated step's
+    launches (SAM2_STEP_LAUNCHES), the median of 5 train steps, a step split
+    into encoder forward / heads forward / heads backward / optimizer (CUDA
+    events, and host wall with a sync at each boundary), a profile of the
+    encoder forward and of a whole step (device busy share), peak memory,
+    epoch times, and device ms of one test and one predict step."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.callbacks import CsvWriter
+    from cryovit_tpu_torch.config import MODELS, TrainConfig
+    from cryovit_tpu_torch.models.sam2.family import LORA_RANK
+    from cryovit_tpu_torch.models.sam2.model import random_sam2_state_dict
+    from cryovit_tpu_torch.run.eval_model import load_for_eval
+    from cryovit_tpu_torch.run.train_model import build_file_datamodule, build_model, build_trainer
+    from cryovit_tpu_torch.train.checkpoint import save_model
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    name = torch.cuda.get_device_name(0)
+    tomo, label = blob_tomogram(np.random.default_rng(19), TRAIN_DEPTH, SIDE)
+    volume = tomo.astype(np.float32) / 255.0
+    data_path, label_path = workdir / "sam2_tomos" / "blobs.hdf", workdir / "sam2_labels" / "blobs.hdf"
+    dataset_cls = _array_dataset(volume[None], label, volume, (data_path, label_path))
+    # the live encoder (default_sam.yaml caches pyramids where a file has them;
+    # these arrays have none)
+    model_cfg = dataclasses.replace(MODELS["sam2"], custom_kwargs=tuple(
+        (k, False if k == "use_cache_features" else v) for k, v in MODELS["sam2"].custom_kwargs))
+    cfg = TrainConfig(label_key="mito", name="smoke_sam2", model=model_cfg)
+    cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, max_epochs=SAM2_EPOCHS))
+    datamodule = build_file_datamodule(cfg, [data_path], [label_path], labels=["mito"],
+                                       dataset_cls=dataset_cls)
+    trainer = build_trainer(cfg, device=dev, root_dir=workdir)
+    rec = _Recorder(trainer)
+    trainer.loggers.append(rec)
+    model = build_model(cfg)
+    # seeded random weights drawn on the card; the object-score head's last
+    # bias at +3 so the masks pass the gate (with random weights it closes on
+    # every slice: the probabilities are all 0 and the Dice term has no
+    # gradient, leaving only the prompt loss)
+    variables = random_sam2_state_dict(model.sam_cfg, torch.Generator(device=dev).manual_seed(18))
+    variables["model.sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(3.0)
+    log("sam2", f"synthetic {TRAIN_DEPTH}x{SIDE}x{SIDE} blob tomogram as raw voxels; SAM2 "
+        f"{model.sam_cfg.image_size}² Hiera-L + heads at full width (d_model "
+        f"{model.sam_cfg.d_model}, LoRA r {LORA_RANK}), bf16 on f32 masters, lr "
+        f"{model.lr} / prompt_lr {model.prompt_lr}, {SAM2_EPOCHS} epochs, live encoder")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    module = trainer.fit(model, datamodule, variables=variables)
+    del variables
+    model_path = save_model("smoke_sam2", "mito", module, workdir / "smoke_sam2.model")
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    peak_fit = torch.cuda.max_memory_allocated()
+    eval_module, ecfg = load_for_eval(model_path, dev)
+    emodel = build_model(ecfg)
+    tester = Trainer(**dataclasses.asdict(ecfg.trainer), callbacks=[CsvWriter(ecfg.csv_dir(workdir))],
+                     device=dev)
+    (result,) = tester.test(emodel, datamodule, eval_module)
+    (predicted,) = tester.predict(datamodule, eval_module, emodel)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    same_weights = all(torch.equal(a, b) for a, b in zip(module.state_dict().values(),
+                                                         eval_module.state_dict().values()))
+
+    losses = rec.series("train_dice_loss")
+    log("sam2", f"Trainer.fit: {SAM2_EPOCHS} epochs of one crop in {t_fit:.1f} s; train_dice_loss "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; train_mask_loss "
+        f"{' '.join(f'{v:.4f}' for v in rec.series('train_mask_loss'))}; val_dice_metric "
+        f"{' '.join(f'{v:.4f}' for v in rec.series('val_dice_metric'))}")
+    log("sam2", f"epoch_time_s {' '.join(f'{v:.3f}' for v in rec.series('epoch_time_s'))} ({name})")
+    log("sam2", f"peak device memory during fit {peak_fit / 2**30:.2f} GiB ({name})")
+    log("sam2", f"Trainer.test on the reloaded .model: metrics {result.metrics}, losses "
+        f"{result.losses}; launches during fit, .model, test and predict: {counts}")
+
+    # one test and one predict step on the device
+    batch, items = next(iter(datamodule.test_loader()))
+    data, target = tester.to_device(batch)
+    inputs = tester.prepare(emodel, data, items)
+    step_ms = {}
+    for what, run in (("test", lambda: tester.eval_step(eval_module, emodel, inputs, target)),
+                      ("predict", lambda: tester.predict_step(eval_module, inputs, emodel))):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms[what] = start.elapsed_time(stop)
+    log("sam2", f"device ms of one Trainer step on the {TRAIN_DEPTH}-slice tomogram: test "
+        f"{step_ms['test']:.2f}, predict {step_ms['predict']:.2f} ({name})")
+    del eval_module
+
+    batch, items = next(iter(datamodule.train_loader()))
+    data, target = trainer.to_device(batch)
+    model.train_mode = True
+    inputs = trainer.prepare(model, data, items)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(inputs, target)
+    torch.cuda.synchronize()
+    step_counts = kernels.launch_counts()
+    peak_step = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(5):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(inputs, target)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    median = statistics.median(times)
+    log("sam2", f"train step at {TRAIN_DEPTH}x{SIDE}x{SIDE} voxels (batch 1, bf16, live encoder): "
+        f"median of 5 {median:.2f} ms (all {' '.join(f'{t:.2f}' for t in times)}) = "
+        f"{TRAIN_DEPTH / median * 1e3:.1f} slices/s; peak device memory of one step "
+        f"{peak_step / 2**30:.2f} GiB ({name})")
+    log("sam2", f"launches in one train step: {step_counts}")
+
+    # the step split: the train step's own calls, one phase at a time
+    from cryovit_tpu_torch.models.base import prediction_mask
+
+    optimizer = trainer.optimizer
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    walls = []
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter())
+    events[0].record()
+    backbone = module.encode_images(data[..., 0].reshape(-1, SIDE, SIDE))
+    events[1].record()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter())
+    optimizer.zero_grad(set_to_none=True)
+    preds, aux = model.apply_with_aux(module.train(), {"slices": data, "backbone": backbone})
+    loss = model.compute_losses(preds, target, prediction_mask(target), aux=aux)["total"]
+    events[2].record()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter())
+    loss.backward()
+    events[3].record()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter())
+    optimizer.step()
+    events[4].record()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter())
+    parts = ("encoder forward (no_grad)", "heads forward + losses", "heads backward",
+             "AdamW (2 groups)")
+    log("sam2", "train step split, device ms (CUDA events) / host ms (wall, synced): " + "; ".join(
+        f"{part} {events[i].elapsed_time(events[i + 1]):.2f} / {(walls[i + 1] - walls[i]) * 1e3:.2f}"
+        for i, part in enumerate(parts)) + f" ({name})")
+    del backbone, preds, aux, loss
+    _profile(lambda: module.encode_images(data[..., 0].reshape(-1, SIDE, SIDE)),
+             f"the frozen encoder's forward in a SAM2 train step ({TRAIN_DEPTH} slices, 2 chunks)",
+             SAM_PROFILE_GROUPS, "plain PyTorch (elementwise, norms, softmax, copies)", name)
+    busy = _profile(lambda: trainer.train_step(inputs, target), "one SAM2 train step",
+                    SAM2_PROFILE_GROUPS, "the rest (elementwise, norms, reductions, copies)", name,
+                    top=15, host_ops=False)
+    log("sam2", f"device busy share of a train step: {busy:.2f} ms of the {median:.2f} ms median "
+        f"step = {100 * busy / median:.1f} % ({name})")
+    probs = result.preds[0]
+    _report_checks({
+        "every logged value finite": all(np.isfinite(v) for h in rec.history for v in h.values()),
+        f"{len(losses)} train steps logged": len(losses) == SAM2_EPOCHS,
+        "the reloaded .model holds the trained weights bit for bit": same_weights,
+        "test metrics finite": all(np.isfinite(v) for v in result.metrics.values()),
+        f"test predictions {(TRAIN_DEPTH, SIDE, SIDE)} in [0, 1]":
+            probs.shape == (TRAIN_DEPTH, SIDE, SIDE) and bool(probs.min() >= 0 and probs.max() <= 1),
+        "predict agrees with test within 1e-3":
+            float(np.abs(predicted.preds[0] - probs).max()) <= 1e-3,
+        f"one train step launches {SAM2_STEP_NONZERO} and nothing else":
+            step_counts == SAM2_STEP_LAUNCHES,
+        "every kernel of the path launched": all(counts[k] > 0 for k in SAM2_STEP_NONZERO),
+    }, "SAM2 training path")
+    del module, trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 # kernel-name fragments → the layer a device kernel belongs to
 PROFILE_GROUPS = (
     ("port kernels (decoder tail)", ("conv3d_dm", "convt2x_dm", "sum_partials")),
@@ -2066,15 +2448,30 @@ UNET_PROFILE_GROUPS = (
 )
 
 
-def _profile(run, what: str, groups, rest: str, name: str, top: int = 12) -> None:
+# a SAM2 train step: the encoder's kernels and products, then the heads'
+# attention (SDPA's flash / efficient kernels), products and convolutions
+SAM2_PROFILE_GROUPS = (
+    ("port kernels (encoder window blocks, attention)", ("attention_sm90", "ln_gemm", "residual_gemm")),
+    ("SDPA (heads' attention)", ("flash", "fmha", "efficient_attention", "attention")),
+    ("cuBLAS / cuDNN (encoder products, heads' linears and convs)",
+     ("xmma", "cutlass", "nvjet", "gemm", "cudnn", "implicit", "conv", "wgrad", "dgrad")),
+    ("host <-> device copies", ("Memcpy",)),
+)
+
+
+def _profile(run, what: str, groups, rest: str, name: str, top: int = 12,
+             host_ops: bool = True) -> float:
     """Device time of one call of ``run`` by kernel and by layer (the first
     of ``groups`` whose name fragments a kernel's name holds, else ``rest``),
     from torch.profiler: device activity only, not the host ops that launch
-    it."""
+    it (``host_ops=False`` leaves them out of the trace as well, which a
+    step of a few hundred thousand launches needs: the profiler's summary of
+    the host ops takes minutes). Returns the device busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2087,11 +2484,14 @@ def _profile(run, what: str, groups, rest: str, name: str, top: int = 12) -> Non
     for e in rows:
         group = next((g for g, keys in groups if any(k in e.key for k in keys)), rest)
         by_group[group] = by_group.get(group, 0.0) + e.self_device_time_total / 1e3
-    log("profile", f"{what}: device busy {total:.2f} ms of {wall:.2f} ms wall (profiled) ({name})")
+    launches = sum(e.count for e in rows)
+    log("profile", f"{what}: device busy {total:.2f} ms of {wall:.2f} ms wall (profiled), "
+        f"{launches} kernel launches ({name})")
     for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         log("profile", f"{ms:9.3f} ms ({100 * ms / total:4.1f} %)  {group}")
     for e in rows[:top]:
         log("profile", f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x  {e.key[:100]}")
+    return total
 
 
 def _kernel_names(build_log: str):
@@ -2136,6 +2536,7 @@ def main() -> int:
     train_reference_phase(dev)
     unet3d_reference_phase(dev)
     sam_reference_phase(dev)
+    sam2_reference_phase(dev)
     with tempfile.TemporaryDirectory(prefix="cryovit_smoke_") as tmp:
         serving = serving_phase(dev, Path(tmp))
         training = training_phase(dev, Path(tmp))
@@ -2144,11 +2545,14 @@ def main() -> int:
         sam_t = sam_serving_phase(dev, Path(tmp), tiny=True)
         torch.cuda.empty_cache()
         unet = unet3d_training_phase(dev, Path(tmp))
+        torch.cuda.empty_cache()
+        sam2 = sam2_training_phase(dev, Path(tmp))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": serving[name] + training[name] + sam[name] + sam_t[name] + unet[name],
+         "launches": (serving[name] + training[name] + sam[name] + sam_t[name] + unet[name]
+                      + sam2[name]),
          **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
@@ -2182,6 +2586,10 @@ def main() -> int:
     row6["train_step"] = {k: results["convt2x_dm_train_step"][k] for k in (*keys, "shapes")}
     next(r for r in report["kernels"] if r["name"] == "convt2x_dm_bwd")["shapes"] = (
         results["convt2x_dm_bwd"]["shapes"])
+    # rows 9-11 on the SAM2 training path (the live encoder, two chunks a step)
+    for name in SAM2_STEP_NONZERO:
+        next(r for r in report["kernels"] if r["name"] == name)["sam2_train"] = {
+            "launches": sam2[name], "per_step": SAM2_STEP_NONZERO[name]}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

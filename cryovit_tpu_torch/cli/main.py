@@ -2,10 +2,11 @@
 
 The verbs and flags follow the JAX package's ``cryovit``: ``features``
 (DINOv2 extraction, and SAM2 pyramids with ``--use-sam``), ``train``
-(CryoVIT on DINOv2 features, or ``--model unet3d`` on raw voxels),
-``evaluate`` (a ``.model`` against labelled files → metrics CSVs) and
-``infer`` (feature or voxel files → masks, or raw tomograms → masks with
-``--fused``). ``train --model sam2|medsam`` is not ported yet.
+(CryoVIT on DINOv2 features, or ``--model unet3d`` / ``--model sam2`` on
+raw voxels; ``--model medsam`` is refused up front, its Hiera-T hitting
+ROADMAP C2), ``evaluate`` (a ``.model`` against labelled files → metrics
+CSVs) and ``infer`` (feature or voxel files → masks, SAM2 artifacts
+included, or raw tomograms → masks with ``--fused``, CryoVIT only).
 
 Every verb runs on the GPU unless ``--device cpu`` asks for the CPU (the
 port's counterpart of ``JAX_PLATFORMS=cpu``); without a GPU the default
@@ -20,8 +21,6 @@ import sys
 from pathlib import Path
 
 __all__ = ["main"]
-
-_NOT_PORTED = 2
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -116,14 +115,11 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.command == "train":
-        from cryovit_tpu_torch.config import MODELS
-        from cryovit_tpu_torch.run.train_model import run_training
+        from cryovit_tpu_torch.config import MODELS, TrainConfig
+        from cryovit_tpu_torch.run.train_model import build_model, run_training
 
-        if args.model not in MODELS:
-            print(f"cryovit-torch: train --model {args.model} is not yet ported to "
-                  "cryovit_tpu_torch (cryovit and unet3d are); use the JAX package's "
-                  "`cryovit` for it.", file=sys.stderr)
-            return _NOT_PORTED
+        config = TrainConfig(label_key=args.label_key, model=MODELS[args.model])
+        build_model(config)  # refuses MedSAM's Hiera-T (ROADMAP C2) before any file is read
         if args.label_key not in args.labels:
             raise ValueError(f"label_key {args.label_key!r} must be one of --labels {args.labels}")
         run_training(
@@ -139,6 +135,7 @@ def main(argv: list[str] | None = None) -> int:
                         if args.validation_labels else None),
             model_type=args.model,
             num_epochs=args.num_epochs,
+            config=config,
             ckpt_path=Path(args.ckpt) if args.ckpt else None,
             log_training=args.log_training,
             export_torch=args.export_torch,

@@ -5,8 +5,8 @@ and the YAML defaults the JAX package composes for
 
 The machine with the GPU has no pyyaml and the port reads nothing of the
 JAX package, so the defaults of ``configs/{train,eval,infer}_model.yaml``,
-``trainer/{fit,eval}.yaml``, ``model/{cryovit,unet3d}.yaml`` +
-``model/default.yaml``, ``callbacks/{stochastic_weight_average,csv_writer,
+``trainer/{fit,eval}.yaml``, ``model/{cryovit,unet3d,sam2,medsam}.yaml`` +
+``model/default.yaml`` (+ ``model/default_sam.yaml``), ``callbacks/{stochastic_weight_average,csv_writer,
 test_pred_writer}.yaml``, ``datamodule/file.yaml`` and
 ``datamodule/dataloader/default.yaml`` are written out here. Overrides are
 ``dataclasses.replace`` on the node.
@@ -57,13 +57,28 @@ class ModelConfig:
     losses: tuple[str, ...] = ("dice_loss",)
     metrics: tuple[str, ...] = ("dice_metric", "f1_metric")
     metric_threshold: float = 0.5
+    custom_kwargs: tuple[tuple[str, object], ...] = ()  # the family's extras, as pairs
+
+
+# ``model/default_sam.yaml``'s custom_kwargs
+_SAM_KWARGS = (
+    ("prompt_lr", 1e-4),
+    ("num_init_cond_slices", (1, 1)),
+    ("rand_init_cond_slices", (True, False)),
+    ("use_cache_features", True),
+)
 
 
 # the ported model families' configs by ``ModelType`` value:
-# ``model/cryovit.yaml`` and ``model/unet3d.yaml``, each over ``default.yaml``
+# ``model/{cryovit,unet3d}.yaml`` over ``default.yaml``, and
+# ``model/{sam2,medsam}.yaml`` over ``default_sam.yaml``
 MODELS: dict[str, ModelConfig] = {
     "cryovit": ModelConfig(),
     "unet3d": ModelConfig(model_type="unet3d", name="UNet3D", input_key="data", lr=3e-3),
+    "sam2": ModelConfig(model_type="sam2", name="SAM2", input_key="data", lr=5e-5,
+                        custom_kwargs=_SAM_KWARGS),
+    "medsam": ModelConfig(model_type="medsam", name="MedSAM", input_key="data", lr=5e-5,
+                          custom_kwargs=_SAM_KWARGS),
 }
 
 
@@ -100,12 +115,16 @@ class DataLoaderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """``train_model.yaml`` with ``model=cryovit`` (or ``model=unet3d``:
-    ``model=MODELS["unet3d"]``) and ``datamodule=file``."""
+    """``train_model.yaml`` with ``model=cryovit`` (or another family:
+    ``model=MODELS["unet3d"]``) and ``datamodule=file``. ``model_dir`` is
+    ``paths.model_dir`` (where ``model_dir/<sam_name>`` holds a published
+    SAM2 checkpoint; ``$CRYOVIT_MODEL_DIR`` by default)."""
 
     label_key: str
     name: str | None = None  # None: "file_any_<model type>_<label_key>"
     random_seed: int = 42
+    model_dir: str | None = None
+    sam_name: str = "SAM2"
     model: ModelConfig = ModelConfig()
     trainer: TrainerConfig = TrainerConfig()
     swa: SWAConfig = SWAConfig()

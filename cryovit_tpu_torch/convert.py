@@ -17,6 +17,14 @@
   state dict (the published sam2 names without ``image_encoder.``).
 - :func:`sam2_encoder_from_published`: a published sam2 checkpoint's
   ``model`` dict (e.g. ``sam2.1_hiera_large.pt``) → port state dict.
+- :func:`sam2_from_jax`: the JAX ``SAM2Model`` variables (encoder, heads,
+  LoRA, prompt predictor; bare or under the family's ``sam`` scope) → the
+  reference's trained SAM2 state dict (the layout
+  ``cryovit_tpu.train.torch_export_sam2.export_sam2_state_dict`` writes),
+  the names of the port's ``SAM2Model``.
+- :func:`sam2_from_published`: a published sam2 checkpoint's ``model``
+  dict → the same names, for every module the checkpoint has; the LoRA
+  factors and the prompt predictor are not in it and stay fresh.
 
 Layout rules: a flax Dense kernel ``(in, out)`` is a torch Linear weight
 ``(out, in)``; a flax conv kernel ``(kd, kh, kw, in, out)`` is a torch Conv3d
@@ -39,6 +47,8 @@ __all__ = [
     "fold_patch_embed",
     "sam2_encoder_from_jax",
     "sam2_encoder_from_published",
+    "sam2_from_jax",
+    "sam2_from_published",
     "unet3d_from_jax",
 ]
 
@@ -267,3 +277,174 @@ def sam2_encoder_from_published(state_dict: dict[str, Any]) -> dict[str, np.ndar
     dict): the ``image_encoder.*`` tensors with that prefix stripped."""
     prefix = "image_encoder."
     return {k[len(prefix):]: _np(v) for k, v in state_dict.items() if k.startswith(prefix)}
+
+
+def _dense2(out: dict, prefix: str, tree: dict) -> None:
+    out[f"{prefix}.weight"] = np.ascontiguousarray(_np(tree["kernel"]).T)
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _np(tree["bias"])
+
+
+def _conv2(out: dict, prefix: str, tree: dict) -> None:
+    out[f"{prefix}.weight"] = _conv2d_w(tree["kernel"])
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _np(tree["bias"])
+
+
+def _ln2(out: dict, prefix: str, tree: dict) -> None:
+    out[f"{prefix}.weight"] = _np(tree["scale"])
+    out[f"{prefix}.bias"] = _np(tree["bias"])
+
+
+def _attention(out: dict, prefix: str, tree: dict) -> None:
+    """Decoder attention; a LoRA-wrapped q/v keeps its base under ``.proj``
+    and its factors as ``.w_a``/``.w_b`` (a rank-0 one is a plain Linear)."""
+    for name in ("q_proj", "v_proj"):
+        sub = tree[name]
+        if "w_a" in sub:
+            for part in ("proj", "w_a", "w_b"):
+                _dense2(out, f"{prefix}.{name}.{part}", sub[part])
+        else:
+            _dense2(out, f"{prefix}.{name}", sub["proj"])
+    _dense2(out, f"{prefix}.k_proj", tree["k_proj"])
+    _dense2(out, f"{prefix}.out_proj", tree["out_proj"])
+
+
+def _count(tree: dict, prefix: str, suffix: str = "") -> int:
+    return sum(1 for k in tree if k.startswith(prefix) and k.endswith(suffix)
+               and k[len(prefix):len(k) - len(suffix)].isdigit())
+
+
+def sam2_from_jax(params: dict) -> dict[str, np.ndarray]:
+    """JAX ``SAM2Model`` variables → the port's ``SAM2Model`` state dict:
+    the SAM2Base tree under ``model.`` and the prompt predictor under
+    ``prompt_predictor.``, as the JAX package exports a trained SAM2
+    (``train/torch_export_sam2.py``). Layer counts come from the tree."""
+    params = _params(params)
+    params = params.get("sam", params)
+    out = {f"model.image_encoder.{k}": v
+           for k, v in sam2_encoder_from_jax(params["image_encoder"]).items()}
+
+    pe, penc = "model.sam_prompt_encoder", params["prompt_encoder"]
+    out[f"{pe}.pe_layer.positional_encoding_gaussian_matrix"] = _np(penc["pe_gaussian"])
+    for i in range(4):
+        out[f"{pe}.point_embeddings.{i}.weight"] = _np(penc["point_embeddings"])[i][None]
+    out[f"{pe}.not_a_point_embed.weight"] = _np(penc["not_a_point_embed"])[None]
+    out[f"{pe}.no_mask_embed.weight"] = _np(penc["no_mask_embed"])[None]
+    for idx, key in ((0, "mask_down0"), (3, "mask_down1"), (6, "mask_down2")):
+        _conv2(out, f"{pe}.mask_downscaling.{idx}", penc[key])
+    for idx, key in ((1, "mask_ln0"), (4, "mask_ln1")):
+        _ln2(out, f"{pe}.mask_downscaling.{idx}", penc[key])
+
+    md, dec = "model.sam_mask_decoder", params["mask_decoder"]
+    for name in ("iou_token", "mask_tokens", "obj_score_token"):
+        out[f"{md}.{name}.weight"] = _np(dec[name])
+    for idx, key in ((0, "upscale1"), (3, "upscale2")):  # flax (kh, kw, in, out), unflipped
+        out[f"{md}.output_upscaling.{idx}.weight"] = np.ascontiguousarray(
+            _np(dec[key]["kernel"]).transpose(2, 3, 0, 1))
+        out[f"{md}.output_upscaling.{idx}.bias"] = _np(dec[key]["bias"])
+    _ln2(out, f"{md}.output_upscaling.1", dec["upscale_ln"])
+    _conv2(out, f"{md}.conv_s0", dec["conv_s0"])
+    _conv2(out, f"{md}.conv_s1", dec["conv_s1"])
+    for i in range(_count(dec, "hyper")):
+        for j in range(_count(dec[f"hyper{i}"], "layer")):
+            _dense2(out, f"{md}.output_hypernetworks_mlps.{i}.layers.{j}", dec[f"hyper{i}"][f"layer{j}"])
+    for head, key in (("iou_prediction_head", "iou_head"), ("pred_obj_score_head", "obj_score_head")):
+        for j in range(_count(dec[key], "layer")):
+            _dense2(out, f"{md}.{head}.layers.{j}", dec[key][f"layer{j}"])
+    tp = f"{md}.transformer"
+    for i in range(_count(dec, "layer")):
+        layer, lp = dec[f"layer{i}"], f"{tp}.layers.{i}"
+        for name in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
+            _attention(out, f"{lp}.{name}", layer[name])
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            _ln2(out, f"{lp}.{n}", layer[n])
+        _dense2(out, f"{lp}.mlp.layers.0", layer["mlp"]["lin1"])
+        _dense2(out, f"{lp}.mlp.layers.1", layer["mlp"]["lin2"])
+    _attention(out, f"{tp}.final_attn_token_to_image", dec["final_attn_token_to_image"])
+    _ln2(out, f"{tp}.norm_final_attn", dec["norm_final"])
+
+    me, menc = "model.memory_encoder", params["memory_encoder"]
+    _conv2(out, f"{me}.pix_feat_proj", menc["pix_proj"])
+    _conv2(out, f"{me}.out_proj", menc["out_proj"])
+    _conv2(out, f"{me}.mask_downsampler.encoder.12", menc["mask_down_final"])
+    for i in range(4):
+        _conv2(out, f"{me}.mask_downsampler.encoder.{3 * i}", menc[f"mask_down{i}"])
+        _ln2(out, f"{me}.mask_downsampler.encoder.{3 * i + 1}", menc[f"mask_ln{i}"])
+    for i in range(2):
+        fp = f"{me}.fuser.layers.{i}"
+        _conv2(out, f"{fp}.dwconv", menc[f"fuser_dw{i}"])
+        _ln2(out, f"{fp}.norm", menc[f"fuser_ln{i}"])
+        _dense2(out, f"{fp}.pwconv1", menc[f"fuser_fc1_{i}"])
+        _dense2(out, f"{fp}.pwconv2", menc[f"fuser_fc2_{i}"])
+        out[f"{fp}.gamma"] = _np(menc[f"fuser_gamma{i}"])
+
+    ma, mattn = "model.memory_attention", params["memory_attention"]
+    _ln2(out, f"{ma}.norm", mattn["norm_out"])
+    for i in range(_count(mattn, "layer")):
+        layer, lp = mattn[f"layer{i}"], f"{ma}.layers.{i}"
+        for key, name in (("self_q", "self_attn.q_proj"), ("self_k", "self_attn.k_proj"),
+                          ("self_v", "self_attn.v_proj"), ("self_out", "self_attn.out_proj"),
+                          ("cross_q", "cross_attn_image.q_proj"),
+                          ("cross_k", "cross_attn_image.k_proj"),
+                          ("cross_v", "cross_attn_image.v_proj"),
+                          ("cross_out", "cross_attn_image.out_proj"),
+                          ("mlp_fc1", "linear1"), ("mlp_fc2", "linear2")):
+            _dense2(out, f"{lp}.{name}", layer[key])
+        for n in ("norm1", "norm2", "norm3"):
+            _ln2(out, f"{lp}.{n}", layer[n])
+
+    out["model.no_mem_embed"] = _np(params["no_mem_embed"])
+    out["model.no_mem_pos_enc"] = _np(params["no_mem_pos_enc"])
+    tpos = _np(params["maskmem_tpos_enc"])
+    out["model.maskmem_tpos_enc"] = tpos.reshape(tpos.shape[0], 1, 1, -1)
+    _dense2(out, "model.obj_ptr_proj", params["obj_ptr_proj"])
+    if "obj_ptr_tpos_proj" in params:
+        _dense2(out, "model.obj_ptr_tpos_proj", params["obj_ptr_tpos_proj"])
+    out["model.no_obj_ptr"] = _np(params["no_obj_ptr"]).reshape(1, -1)
+
+    if "prompt_predictor" not in params:  # a converted published checkpoint has none
+        return out
+    pd, pp = "prompt_predictor", params["prompt_predictor"]
+
+    def conv3(prefix: str, tree: dict) -> None:
+        out[f"{prefix}.weight"] = _conv_w(tree["kernel"])
+        if "bias" in tree:
+            out[f"{prefix}.bias"] = _np(tree["bias"])
+
+    conv3(f"{pd}.init_conv.layers.0.conv", pp["in0"]["Conv_0"])
+    conv3(f"{pd}.init_conv.layers.1.conv", pp["in1"]["Conv_0"])
+    depth = _count(pp, "down", "_0")
+    for i in range(depth):
+        conv3(f"{pd}.down_layers.{i}.layers.1.conv", pp[f"down{i}_0"]["Conv_0"])
+        conv3(f"{pd}.down_layers.{i}.layers.2.conv", pp[f"down{i}_1"]["Conv_0"])
+    for j, i in enumerate(reversed(range(depth))):  # up_layers count from the bottom
+        conv3(f"{pd}.up_layers.{j}.layers.0.conv", pp[f"up{i}_0"]["Conv_0"])
+        conv3(f"{pd}.up_layers.{j}.layers.1.conv", pp[f"up{i}_1"]["Conv_0"])
+    conv3(f"{pd}.prompt_out", pp["prompt_out"])
+    _dense2(out, f"{pd}.box_out.fc", pp["box_out"])
+    return out
+
+
+_LORA_PROJ = (".self_attn.", ".cross_attn_token_to_image.", ".cross_attn_image_to_token.",
+              ".final_attn_token_to_image.")
+
+
+def sam2_from_published(state_dict: dict[str, Any]) -> dict[str, np.ndarray]:
+    """A published sam2 checkpoint's ``model`` dict (``sam2.1_hiera_large.pt``,
+    ``MedSAM2_latest.pt``) → port ``SAM2Model`` names: every tensor under
+    ``model.``, the decoder's q/v projections moved under ``.proj`` (where
+    the LoRA wrapper keeps its base). The result is partial: the LoRA
+    factors and the prompt predictor are not in a published checkpoint.
+    Tensors the port has no place for (sam2 options the reference's config
+    leaves off) are left for the caller to report."""
+    out = {}
+    for k, v in state_dict.items():
+        name = f"model.{k}"
+        if (k.startswith("sam_mask_decoder.transformer.")
+                and any(p in k for p in _LORA_PROJ)
+                and (".q_proj." in k or ".v_proj." in k)):
+            head, leaf = name.rsplit(".", 1)
+            name = f"{head}.proj.{leaf}"
+        out[name] = _np(v)
+    return out

@@ -3,7 +3,10 @@
 Port of ``cryovit_tpu/data/datasets.py`` (:func:`random_crop` and the
 CLI-mode :class:`FileDataset`, reference ``datasets/file_dataset.py``).
 Arrays are returned channels-last ``(D, H, W, C)``; the HDF5 files stay
-channels-first for compatibility with the reference. The experiment-mode
+channels-first for compatibility with the reference. Raw voxels
+(``input_key: data``, UNet3D and SAM2) are read as they are, with no
+padding to a multiple; with ``aux_keys=("sam_features",)`` an HDF5 file's
+cached SAM2 pyramids ride along in ``aux_data``. The experiment-mode
 ``TomoDataset`` and the feature-extraction ``VITDataset`` (pandas) are not
 ported yet.
 """
@@ -59,6 +62,25 @@ def random_crop(
     return data, label
 
 
+_HDF_SUFFIXES = (".h5", ".hdf", ".hdf5")
+
+
+def _read_sam_features(path: Path) -> dict[str, list[np.ndarray]] | None:
+    """The ``sam_features/{backbone_fpn,vision_pos_enc}/<level>`` pyramids
+    of an HDF5 file (per level ``(D, C, h, w)``, reference
+    ``tomo_dataset.py:128-144``), or None when the file has none."""
+    if Path(path).suffix.lower() not in _HDF_SUFFIXES:
+        return None
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        if "sam_features" not in f:
+            return None
+        grp = f["sam_features"]
+        return {name: [np.asarray(grp[name][str(i)][()]) for i in range(len(grp[name]))]
+                for name in grp}
+
+
 def _to_channels_last(arr: np.ndarray, key: str) -> np.ndarray:
     """File layout → channels-last. Features ``(C, D, h, w)`` →
     ``(D, h, w, C)``; volumes ``(D, H, W)`` → ``(D, H, W, 1)``."""
@@ -86,8 +108,10 @@ class FileDataset:
         train: bool = False,
         seed: int | None = None,
         max_crop_depth: int = MAX_CROP_DEPTH,
+        aux_keys: tuple[str, ...] = (),
     ) -> None:
         self.files = files
+        self.aux_keys = tuple(aux_keys)
         self.input_key = input_key
         self.label_key = label_key
         self.train = train
@@ -126,6 +150,10 @@ class FileDataset:
         data, label = self._load(fd)
 
         aux: dict[str, Any] = {}
+        if "sam_features" in self.aux_keys:
+            cached = _read_sam_features(fd.tomo_path)
+            if cached is not None:
+                aux["sam_features"] = cached
         data_cl = _to_channels_last(
             data[0] if data.ndim == 4 and data.shape[0] == 1 else data,
             self.input_key or "data",
@@ -133,6 +161,7 @@ class FileDataset:
         if self.train:
             if label is None:
                 label = np.zeros(data.shape[-3:], dtype=np.int8)
+            full = data_cl.shape
             data_cl, label = random_crop(
                 data_cl,
                 label,
@@ -140,6 +169,8 @@ class FileDataset:
                 max_depth=self.max_crop_depth,
                 rng=self.rng,
             )
+            if data_cl.shape != full:  # cached pyramids describe the whole volume
+                aux.pop("sam_features", None)
         else:
             # the raw volume rides along for writers and visualisation
             aux["data"] = data[0] if self.input_key == "data" else self._load_raw(fd)

@@ -154,5 +154,6 @@ def load_files_from_path(path: str | Path) -> list[Path]:
         raise ValueError(
             "Data path must be a directory or a .txt file listing data files."
         )
-    assert len(file_paths) > 0, f"No valid tomogram files found in {path}."
+    if not file_paths:
+        raise ValueError(f"No valid tomogram files found in {path}.")
     return file_paths

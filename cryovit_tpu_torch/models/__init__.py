@@ -1,5 +1,5 @@
-"""Model families: the CryoVIT decoder over DINOv2 features and the 3D
-U-Net baseline on raw voxels (the ``SAM2`` family is not ported yet)."""
+"""Model families: the CryoVIT decoder over DINOv2 features, the 3D U-Net
+baseline on raw voxels and the SAM2 / MedSAM family (``models/sam2``)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from cryovit_tpu_torch.models import losses, metrics
 from cryovit_tpu_torch.models.base import BaseModel, prediction_mask
 from cryovit_tpu_torch.models.cryovit import CryoVIT as CryoVITModule
 from cryovit_tpu_torch.models.cryovit import make_cryovit, random_cryovit_state_dict
+from cryovit_tpu_torch.models.sam2.family import SAM2
 from cryovit_tpu_torch.models.unet3d import PAD_MULTIPLE, make_unet3d, random_unet3d_state_dict
 from cryovit_tpu_torch.models.unet3d import UNet3D as UNet3DModule
 from cryovit_tpu_torch.types import ModelType
@@ -20,6 +21,7 @@ __all__ = [
     "CryoVITModule",
     "ModelType",
     "PAD_MULTIPLE",
+    "SAM2",
     "UNet3D",
     "UNet3DModule",
     "losses",

@@ -69,6 +69,7 @@ class BaseModel:
     """
 
     model_type: ModelType
+    train_mode: bool = False  # set by the Trainer around fit epochs
 
     def __init__(
         self,
@@ -101,12 +102,23 @@ class BaseModel:
     ) -> nn.Module:
         raise NotImplementedError
 
+    def apply(self, module: nn.Module, data) -> torch.Tensor:
+        """Forward pass: ``(B, D, H, W, C)`` → probabilities ``(B, D, H, W)``."""
+        return module(data)
+
+    def apply_with_aux(self, module: nn.Module, data) -> tuple[torch.Tensor, dict]:
+        """Probabilities and the model's extra outputs for its own loss
+        terms (SAM2's prompts); none here."""
+        return self.apply(module, data), {}
+
     def compute_losses(
-        self, y_pred: torch.Tensor, y_true: torch.Tensor, mask: torch.Tensor
+        self, y_pred: torch.Tensor, y_true: torch.Tensor, mask: torch.Tensor,
+        aux: dict | None = None,
     ) -> dict[str, torch.Tensor]:
         """All losses and their sum as ``total`` (reference
         ``base_model.py:114-119``). Keys are the config names
-        (``dice_loss``), the reference's metrics-CSV columns."""
+        (``dice_loss``), the reference's metrics-CSV columns. ``aux`` carries
+        :meth:`apply_with_aux`'s extra outputs."""
         out = {key: fn(y_pred, y_true, mask) for key, fn in self.losses.items()}
         out["total"] = sum(out.values())
         return out
@@ -119,8 +131,11 @@ class BaseModel:
 
     def make_optimizer(self, params, lr: float | None = None) -> torch.optim.AdamW:
         """AdamW(lr, weight_decay) with optax's defaults (β 0.9/0.999, ε
-        1e-8; reference ``base_model.py:58-63``). Gradient clipping, when
-        the trainer asks for it, is :func:`clip_gradients` before the step."""
+        1e-8; reference ``base_model.py:58-63``) over ``params`` (a module's
+        parameters, or the module). Gradient clipping, when the trainer asks
+        for it, is :func:`clip_gradients` before the step."""
+        if isinstance(params, nn.Module):
+            params = params.parameters()
         return torch.optim.AdamW(
             params, lr=lr if lr is not None else self.lr, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=self.weight_decay,

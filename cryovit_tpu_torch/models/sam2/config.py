@@ -3,8 +3,7 @@
 ``large()`` mirrors ``sam2.1_hiera_l.yaml`` (the published
 ``sam2.1_hiera_large.pt``) at image size 512; ``medsam_tiny()`` the
 MedSAM2 / ``sam2.1_hiera_t`` trunk; ``tiny_test()`` is a scaled-down config
-for CPU tests. Only the fields the image encoder reads are here; the SAM2
-heads and tracking will add theirs with their code. Every stage transition
+for CPU tests, field for field the JAX package's. Every stage transition
 pools queries 2×, as in every published Hiera (``q_stride`` 2).
 """
 
@@ -61,9 +60,36 @@ class HieraConfig:
 @dataclasses.dataclass(frozen=True)
 class SAM2Config:
     hiera: HieraConfig = HieraConfig.large()
-    d_model: int = 256  # FPN hidden dim
+    d_model: int = 256  # FPN / SAM hidden dim
     image_size: int = 512
+    backbone_stride: int = 16  # stride of the SAM-head feature level
     num_feature_levels: int = 3  # strides 4, 8, 16 after scalp
+    mem_dim: int = 64
+    num_maskmem: int = 7  # 1 cond + 6 rolling non-cond memories
+    memory_attention_layers: int = 4
+    decoder_depth: int = 2
+    decoder_heads: int = 8
+    num_multimask_outputs: int = 3
+    iou_head_depth: int = 3
+    max_obj_ptrs: int = 16
+    no_obj_score: float = -1024.0  # reference models/sam2.py:45
+    # sam2.1's affine on the sigmoid mask before the memory encoder
+    # (sam2.1_hiera_l.yaml: sigmoid_scale/bias_for_mem_enc)
+    sigmoid_scale_for_mem_enc: float = 20.0
+    sigmoid_bias_for_mem_enc: float = -10.0
+    # sam2.1: temporal sine PE projected onto the object-pointer tokens
+    add_tpos_enc_to_obj_ptrs: bool = True
+    # conditioning-memory slots of the bank (the reference trains with a
+    # random number of initial cond slices up to num_init_cond_slices)
+    max_cond_slices: int = 1
+
+    @property
+    def embed_size(self) -> int:
+        return self.image_size // self.backbone_stride
+
+    @property
+    def mask_input_size(self) -> int:
+        return self.image_size // 4
 
     @classmethod
     def large(cls) -> "SAM2Config":
@@ -75,4 +101,14 @@ class SAM2Config:
 
     @classmethod
     def tiny_test(cls) -> "SAM2Config":
-        return cls(hiera=HieraConfig.test(), d_model=32, image_size=64)
+        return cls(
+            hiera=HieraConfig.test(),
+            d_model=32,
+            image_size=64,
+            mem_dim=16,
+            num_maskmem=3,
+            memory_attention_layers=1,
+            decoder_depth=1,
+            decoder_heads=2,
+            max_obj_ptrs=4,
+        )

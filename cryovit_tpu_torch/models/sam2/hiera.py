@@ -46,8 +46,8 @@ from cryovit_tpu_torch.ops.window_attention import (
     window_block_mlp,
 )
 
-__all__ = ["Hiera", "MultiScaleAttention", "MultiScaleBlock", "window_partition",
-           "window_unpartition"]
+__all__ = ["Hiera", "MultiScaleAttention", "MultiScaleBlock", "check_window_rule",
+           "window_partition", "window_unpartition"]
 
 
 def window_partition(x: torch.Tensor, w: int) -> tuple[torch.Tensor, tuple[int, int]]:
@@ -261,6 +261,27 @@ class PatchEmbed(nn.Module):
         return y.permute(0, 2, 3, 1).contiguous()
 
 
+def check_window_rule(cfg: HieraConfig) -> None:
+    """Refuse a trunk whose q-pool block would pool an odd window (ROADMAP
+    C2). The first block of a stage takes that stage's window (the JAX
+    package's rule, which the port follows; published sam2 gives it the
+    previous stage's) and pools its queries 2×, so an odd window cannot be
+    reassembled: the JAX package fails there with a reshape error in
+    ``window_unpartition``. Hiera-T (``SAM2Config.medsam_tiny()``, windows
+    (8, 4, 14, 7)) is refused at block 10."""
+    idx = 0
+    for stage, depth in enumerate(cfg.stages):
+        window = cfg.window_spec[stage]
+        if stage > 0 and idx not in cfg.global_att_blocks and window % 2:
+            raise ValueError(
+                f"Hiera block {idx} pools queries 2x over {window}x{window} windows, which "
+                "cannot be reassembled: the first block of a stage takes that stage's window "
+                "(the JAX package's rule, which the port follows), so an odd window there is "
+                f"refused (ROADMAP C2; window_spec {tuple(cfg.window_spec)})"
+            )
+        idx += depth
+
+
 class Hiera(nn.Module):
     """Hiera trunk returning one ``(B, h, w, C)`` map per stage (strides 4,
     8, 16, 32). Input ``(B, H, W)`` (one channel) or ``(B, H, W, Cin)``.
@@ -280,6 +301,7 @@ class Hiera(nn.Module):
         self.pos_embed_window = nn.Parameter(torch.zeros(1, cfg.embed_dim, w0, w0))
 
         # per block: (window, q_pool, stage end), built as the JAX package does
+        check_window_rule(cfg)
         self.specs: list[tuple[int, bool, bool]] = []
         stage_ends = {sum(cfg.stages[: s + 1]) - 1 for s in range(len(cfg.stages))}
         blocks = []

@@ -8,7 +8,11 @@ Port of ``cryovit_tpu/ops/resize.py``:
 - linear with ``jax.image.resize(..., "linear")`` parity, the SAM2
   extractor's resize to 512² (``cryovit_tpu/run/sam_features.py:149``):
   half-pixel centres, a triangle kernel widened by the scale factor on a
-  downscale (antialiasing), weights renormalised per output sample.
+  downscale (antialiasing), weights renormalised per output sample;
+- linear with ``align_corners=True`` (torch ``F.interpolate``'s convention,
+  the SAM2 prompt predictor's upsampling, ``cryovit_tpu/ops/resize.py``'s
+  ``linear_resize_matrix(..., align_corners=True)``), under its own name:
+  :func:`align_corners_resize_matrix`.
 """
 
 from __future__ import annotations
@@ -18,7 +22,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["bicubic_resize_matrix", "linear_resize_matrix", "resize_bicubic_2d", "resize_linear_2d"]
+__all__ = [
+    "align_corners_resize_matrix",
+    "bicubic_resize_matrix",
+    "linear_resize_matrix",
+    "resize_bicubic_2d",
+    "resize_linear_2d",
+]
 
 
 def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -55,12 +65,25 @@ def bicubic_resize_matrix(in_size: int, out_size: int, a: float = -0.75) -> np.n
     return mat
 
 
+_DEVICE_MATRICES: dict[tuple, torch.Tensor] = {}
+
+
+def _on_device(matrix, in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``matrix(in_size, out_size)`` as an f32 tensor on ``device``, copied
+    there once (a copy from pageable host memory can stall the host until
+    the device's queue drains, which a per-slice loop must not pay)."""
+    key = (matrix, in_size, out_size, device)
+    if key not in _DEVICE_MATRICES:
+        _DEVICE_MATRICES[key] = torch.from_numpy(matrix(in_size, out_size).copy()).to(device)
+    return _DEVICE_MATRICES[key]
+
+
 def _resize_2d(x: torch.Tensor, out_h: int, out_w: int, matrix) -> torch.Tensor:
     """``Rh @ x @ Rwᵀ`` over the last two axes of ``x`` (…, H, W) in f32,
     with ``matrix(in_size, out_size)`` building each side's weights."""
     h, w = x.shape[-2], x.shape[-1]
-    rh = torch.from_numpy(matrix(h, out_h).copy()).to(x.device)
-    rw = torch.from_numpy(matrix(w, out_w).copy()).to(x.device)
+    rh = _on_device(matrix, h, out_h, x.device)
+    rw = _on_device(matrix, w, out_w, x.device)
     return torch.matmul(torch.matmul(rh, x.float()), rw.t())
 
 
@@ -95,3 +118,27 @@ def resize_linear_2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize the last two axes of ``x`` (…, H, W) in f32 with the
     antialiased linear weights of :func:`linear_resize_matrix`."""
     return _resize_2d(x, out_h, out_w, linear_resize_matrix)
+
+
+@lru_cache(maxsize=64)
+def align_corners_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense ``(out_size, in_size)`` f32 matrix of linear interpolation with
+    aligned corners (output sample j at input ``j·(in−1)/(out−1)``; the
+    identity when the sizes agree). Cached numpy; callers copy it."""
+    if in_size == out_size:
+        mat = np.eye(out_size, dtype=np.float32)
+    else:
+        dst = np.arange(out_size, dtype=np.float64)
+        if out_size > 1:
+            src = dst * (in_size - 1) / (out_size - 1)
+        else:
+            src = np.clip((dst + 0.5) * in_size / out_size - 0.5, 0, in_size - 1)
+        i0 = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+        i1 = np.minimum(i0 + 1, in_size - 1)
+        w = np.clip(src - i0, 0.0, 1.0)
+        mat = np.zeros((out_size, in_size), dtype=np.float64)
+        np.add.at(mat, (np.arange(out_size), i0), 1.0 - w)
+        np.add.at(mat, (np.arange(out_size), i1), w)
+        mat = mat.astype(np.float32)
+    mat.flags.writeable = False
+    return mat

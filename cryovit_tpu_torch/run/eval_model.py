@@ -1,6 +1,6 @@
 """Evaluation runner (port of ``cryovit_tpu/run/eval_model.py:run_evaluation``).
 
-Scores a ``.model`` artifact (CryoVIT or UNet3D) on explicit tomogram and
+Scores a ``.model`` artifact (CryoVIT, UNet3D or SAM2) on explicit tomogram and
 label files: :meth:`Trainer.test <cryovit_tpu_torch.train.loop.Trainer.test>`
 over the files, one metrics row per tomogram in
 ``<result_dir>/results/<model name>/<sample>.csv`` and, with

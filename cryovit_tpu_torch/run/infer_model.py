@@ -5,8 +5,9 @@ Tomograms → thresholded uint8 HDF5 masks, two ways:
 - fused (``fused=True``, CryoVIT only): raw tomograms → DINOv2 → CryoVIT
   decoder, the features never leaving the device;
 - file-based: each file's model input (stored DINOv2 features for CryoVIT,
-  raw voxels for UNet3D) through ``FileDataModule.predict_loader`` and
-  ``Trainer.predict``, written by :class:`PredictionWriter`.
+  raw voxels for UNet3D and SAM2) through ``FileDataModule.predict_loader``
+  and ``Trainer.predict`` (with the family's ``prepare_inputs``), written by
+  :class:`PredictionWriter`.
 
 The JAX package composes a YAML config here; the port takes explicit
 arguments with the same defaults (the DINOv2 weights directory is
@@ -32,7 +33,7 @@ from cryovit_tpu_torch.models.dinov2 import DinoV2Config
 from cryovit_tpu_torch.models.fused import FusedDinoCryoVIT
 from cryovit_tpu_torch.run.dino_features import load_extractor
 from cryovit_tpu_torch.run.eval_model import load_for_eval
-from cryovit_tpu_torch.run.train_model import build_file_datamodule
+from cryovit_tpu_torch.run.train_model import build_file_datamodule, build_model
 from cryovit_tpu_torch.train.checkpoint import load_model
 from cryovit_tpu_torch.train.loop import Trainer
 from cryovit_tpu_torch.types import BatchedModelResult, ModelType
@@ -123,7 +124,7 @@ def _run_file_inference(
                               threshold=threshold)
     trainer = Trainer(**dataclasses.asdict(cfg.trainer), callbacks=[writer],
                       seed=cfg.random_seed, device=device)
-    trainer.predict(build_file_datamodule(cfg, data), module)
+    trainer.predict(build_file_datamodule(cfg, data), module, build_model(cfg))
     logger.info("wrote %d segmentations under %s", len(writer.result_paths), result_dir)
     return writer.result_paths
 

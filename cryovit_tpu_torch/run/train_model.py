@@ -2,12 +2,15 @@
 
 Trains a model on explicit tomogram and label files and writes a
 distributable ``.model`` artifact in the reference torch format, which
-``cryovit-torch infer --fused``, the JAX package and the reference stack
-all read: the CryoVIT decoder on DINOv2 features, or the U-Net on raw
-voxels. The JAX package composes a YAML config here; the port builds the
-same recipe from :class:`cryovit_tpu_torch.config.TrainConfig`. The
-experiment-mode ``run_trainer`` (splits CSV) and the SAM2 families are not
-ported yet.
+``cryovit-torch evaluate``/``infer``, the JAX package and the reference
+stack all read: the CryoVIT decoder on DINOv2 features, the U-Net on raw
+voxels, or SAM2 on raw voxels (its frozen Hiera-L encoder run live on every
+step, LoRA decoder and prompt predictor trained; a published checkpoint
+under ``model_dir/<sam_name>`` is laid over the initial weights, random
+ones with a warning when there is none). MedSAM's Hiera-T is refused up
+front (ROADMAP C2). The JAX package composes a YAML config here; the port
+builds the same recipe from :class:`cryovit_tpu_torch.config.TrainConfig`.
+The experiment-mode ``run_trainer`` (splits CSV) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +26,9 @@ from cryovit_tpu_torch import require_bf16_on_cuda, resolve_device
 from cryovit_tpu_torch.callbacks import TensorBoardLogger
 from cryovit_tpu_torch.config import LOSSES, METRICS, MODELS, PRECISION_DTYPES, TrainConfig
 from cryovit_tpu_torch.data import DataLoader, FileDataModule, FileDataset
-from cryovit_tpu_torch.models import BaseModel, CryoVIT, UNet3D
+from cryovit_tpu_torch.models import SAM2, BaseModel, CryoVIT, UNet3D
 from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
+from cryovit_tpu_torch.run.dino_features import default_model_dir
 from cryovit_tpu_torch.train.checkpoint import load_model, save_model
 from cryovit_tpu_torch.train.loop import Trainer
 from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
@@ -35,12 +39,16 @@ logger = logging.getLogger(__name__)
 __all__ = ["build_file_datamodule", "build_model", "build_trainer", "run_training"]
 
 
-_FAMILIES = {"cryovit": CryoVIT, "unet3d": UNet3D}
+_FAMILIES = {"cryovit": CryoVIT, "unet3d": UNet3D, "sam2": SAM2, "medsam": SAM2}
 
 
 def build_model(cfg: TrainConfig) -> BaseModel:
-    """The model family of ``cfg.model``, computing in the trainer's precision."""
+    """The model family of ``cfg.model``, computing in the trainer's
+    precision (SAM2 draws its cond slices from the run's seed)."""
     m = cfg.model
+    custom = dict(m.custom_kwargs)
+    if _FAMILIES[m.model_type] is SAM2:
+        custom.setdefault("cond_seed", cfg.random_seed)
     return _FAMILIES[m.model_type](
         name=m.name,
         input_key=m.input_key,
@@ -48,6 +56,7 @@ def build_model(cfg: TrainConfig) -> BaseModel:
         weight_decay=m.weight_decay,
         losses={k: LOSSES[k]() for k in m.losses},
         metrics={k: METRICS[k](threshold=m.metric_threshold) for k in m.metrics},
+        custom_kwargs=custom,
         dtype=PRECISION_DTYPES[cfg.trainer.precision],
     )
 
@@ -64,6 +73,7 @@ def build_file_datamodule(
     """CLI-mode :class:`FileDataModule` (reference ``run/train_model.py:82-92``)
     for a training or evaluation config."""
     dl = cfg.dataloader
+    aux_keys = ("sam_features",) if dict(cfg.model.custom_kwargs).get("use_cache_features") else ()
     return FileDataModule(
         data_paths=data_paths,
         data_labels=data_labels,
@@ -71,7 +81,8 @@ def build_file_datamodule(
         val_labels=val_labels,
         labels=labels,
         dataset_fn=functools.partial(
-            dataset_cls, input_key=cfg.model.input_key, label_key=cfg.label_key
+            dataset_cls, input_key=cfg.model.input_key, label_key=cfg.label_key,
+            aux_keys=aux_keys,
         ),
         dataloader_fn=functools.partial(
             DataLoader, batch_size=dl.batch_size, num_workers=dl.num_workers,
@@ -110,6 +121,16 @@ def _initial_weights(ckpt_path: Path) -> dict[str, torch.Tensor]:
     return torch.load(ckpt_path, map_location="cpu", weights_only=True)
 
 
+def _sam_pretrained(model: BaseModel, cfg: TrainConfig) -> dict | None:
+    """The published SAM2 / MedSAM checkpoint under ``model_dir/<sam_name>``
+    as a partial state dict (``SAM2.load_pretrained``); None for the other
+    families, or, with a warning, when the directory holds none."""
+    if not isinstance(model, SAM2):
+        return None
+    sam_dir = Path(cfg.model_dir) / cfg.sam_name if cfg.model_dir else default_model_dir(cfg.sam_name)
+    return model.load_pretrained(sam_dir)
+
+
 def run_training(
     train_data: list[Path],
     train_labels: list[Path],
@@ -139,10 +160,6 @@ def run_training(
     bf16, the kernels' dtype: f32 raises before anything is built or
     written.
     """
-    if ModelType(model_type).value not in MODELS:
-        raise NotImplementedError(
-            f"{model_type} training is not yet ported (cryovit and unet3d only)"
-        )
     cfg = config or TrainConfig(label_key=label_key, model=MODELS[ModelType(model_type).value])
     device = resolve_device(device)
     precision = cfg.trainer.precision
@@ -155,6 +172,7 @@ def run_training(
         trainer=dataclasses.replace(cfg.trainer, max_epochs=num_epochs),
     )
 
+    model = build_model(cfg)  # MedSAM's Hiera-T is refused here, before any data is read
     datamodule = build_file_datamodule(
         cfg, data_paths=train_data, data_labels=train_labels, val_paths=val_data,
         val_labels=val_labels, labels=labels,
@@ -165,7 +183,10 @@ def run_training(
         logger.info("fine-tuning from %s", ckpt_path)
 
     trainer = build_trainer(cfg, device, result_dir, log_training)
-    module = trainer.fit(build_model(cfg), datamodule, variables=variables)
+    module = trainer.fit(
+        model, datamodule, variables=variables,
+        pretrained_variables=_sam_pretrained(model, cfg) if variables is None else None,
+    )
 
     out_path = save_model(model_name, label_key, module, result_dir / f"{model_name}.model")
     logger.info("saved model artifact to %s", out_path)

@@ -13,6 +13,12 @@ A ``.model`` file is a pickle of the reference ``cryovit.utils.SavedModel``
 - :func:`save_model` writes it, so the reference stack and the JAX package
   read it back.
 
+SAM2 and MedSAM artifacts hold the reference SAM2 wrapper's full trained
+state dict (``model.*`` and ``prompt_predictor.*``, the names
+``cryovit_tpu.train.torch_export_sam2.export_sam2_state_dict`` writes),
+loaded strictly into the port's ``SAM2Model``; the architecture (the test
+config or the published one, the LoRA rank) is read off the tensors' shapes.
+
 The JAX package's own ``.model`` (flax msgpack weights inside the pickle)
 needs flax to decode and is refused with a clear error.
 """
@@ -25,19 +31,49 @@ import pickle
 import sys
 import types as pytypes
 from collections import OrderedDict
+from functools import partial
 from pathlib import Path
 from typing import Any
 
 import torch
 
 from cryovit_tpu_torch.models.cryovit import CryoVIT, make_cryovit
+from cryovit_tpu_torch.models.sam2.config import HieraConfig, SAM2Config
+from cryovit_tpu_torch.models.sam2.family import make_sam2
+from cryovit_tpu_torch.models.sam2.model import SAM2Model
 from cryovit_tpu_torch.models.unet3d import UNet3D, make_unet3d
 from cryovit_tpu_torch.types import ModelType
 
 __all__ = ["load_model", "reference_model_cfg", "save_model"]
 
+
+def _sam2_config_of(state_dict: dict, model_type: ModelType) -> tuple[SAM2Config, int]:
+    """The ``SAM2Config`` and LoRA rank of a SAM2 state dict, from its
+    shapes: the test config when the trunk is the test Hiera's width,
+    otherwise ``large()`` (SAM2) or ``medsam_tiny()`` (MedSAM); the rank is
+    the LoRA factors' (0 without them)."""
+    width = state_dict["model.image_encoder.trunk.patch_embed.proj.weight"].shape[0]
+    if width == HieraConfig.test().embed_dim:
+        cfg = SAM2Config.tiny_test()
+    else:
+        cfg = SAM2Config.medsam_tiny() if model_type == ModelType.MEDSAM else SAM2Config.large()
+    lora = [v for k, v in state_dict.items() if k.endswith(".w_a.weight")]
+    return cfg, (lora[0].shape[0] if lora else 0)
+
+
+def _make_sam2(state_dict, device=None, dtype=torch.float32, model_type=ModelType.SAM2):
+    cfg, rank = _sam2_config_of(state_dict, model_type)
+    return make_sam2(state_dict, cfg, device, dtype, lora_rank=rank, lora_alpha=float(rank or 1),
+                     model_type=model_type)
+
+
 # the model families whose .model artifacts the port reads and writes
-_MODULES = {ModelType.CRYOVIT: (CryoVIT, make_cryovit), ModelType.UNET3D: (UNet3D, make_unet3d)}
+_MODULES = {
+    ModelType.CRYOVIT: (CryoVIT, make_cryovit),
+    ModelType.UNET3D: (UNet3D, make_unet3d),
+    ModelType.SAM2: (SAM2Model, partial(_make_sam2, model_type=ModelType.SAM2)),
+    ModelType.MEDSAM: (SAM2Model, partial(_make_sam2, model_type=ModelType.MEDSAM)),
+}
 
 
 class _Stub:
@@ -110,12 +146,12 @@ def load_model(
     model_path: str | Path,
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
-) -> tuple[CryoVIT | UNet3D, ModelType, str, str]:
+) -> tuple[CryoVIT | UNet3D | SAM2Model, ModelType, str, str]:
     """Read a reference-format ``.model`` artifact.
 
     Returns ``(model, model_type, name, label_key)``; ``model`` is the
-    CryoVIT decoder or the U-Net with its weights on ``device`` in ``dtype``
-    (the SAM2 families are not ported yet).
+    CryoVIT decoder or the U-Net with its weights on ``device`` in ``dtype``,
+    or the SAM2 module (f32 weights computing in ``dtype``).
     """
     model_path = Path(model_path)
     if not model_path.exists():
@@ -133,26 +169,29 @@ def load_model(
             "format), which cannot be read without flax; export it with "
             "cryovit_tpu.train.torch_export.save_torch_model first."
         )
-    if model_type not in _MODULES:
-        raise NotImplementedError(
-            f"{model_type.value} models are not yet ported (CryoVIT and UNet3D only)"
-        )
     sd = {str(k): v for k, v in dict(raw.weights).items()}
     model = _MODULES[model_type][1](sd, device=device, dtype=dtype)
     return model, model_type, str(raw.name), str(raw.label_key)
 
 
 def reference_model_cfg(model_type: ModelType) -> dict[str, Any]:
-    """The reference's composed ``cfg.model`` for CryoVIT or UNet3D as a
-    plain dict (reference ``configs/model/{cryovit,unet3d}.yaml`` +
-    ``default.yaml``; ``cryovit_tpu/train/torch_export.py:169-190``). The
-    reference loader instantiates the model from it."""
+    """The reference's composed ``cfg.model`` as a plain dict (reference
+    ``configs/model/{cryovit,unet3d,sam2,medsam}.yaml`` + ``default.yaml`` /
+    ``default_sam.yaml``; ``cryovit_tpu/train/torch_export.py:169-223``).
+    The reference loader instantiates the model from it."""
+    custom = None
     if model_type == ModelType.CRYOVIT:
         head = {"_target_": "cryovit.models.CryoVIT", "name": "CryoVIT",
                 "input_key": "dino_features", "lr": 1e-4}
     elif model_type == ModelType.UNET3D:
         head = {"_target_": "cryovit.models.UNet3D", "name": "UNet3D",
                 "input_key": "data", "lr": 3e-3}
+    elif model_type in (ModelType.SAM2, ModelType.MEDSAM):
+        head = {"_target_": "cryovit.models.sam2.SAM2",
+                "name": "MedSAM" if model_type == ModelType.MEDSAM else "SAM2",
+                "input_key": "data", "lr": 5e-5}
+        custom = {"prompt_lr": 1e-4, "num_init_cond_slices": [1, 1],
+                  "rand_init_cond_slices": [True, False], "use_cache_features": True}
     else:
         raise NotImplementedError(f"{model_type.value} models are not yet ported")
     return {
@@ -164,7 +203,7 @@ def reference_model_cfg(model_type: ModelType) -> dict[str, Any]:
             "dice_metric": {"_target_": "cryovit.models.metrics.DiceMetric", "threshold": 0.5},
             "f1_metric": {"_target_": "cryovit.models.metrics.F1Metric"},
         },
-        "custom_kwargs": None,
+        "custom_kwargs": custom,
     }
 
 
@@ -247,14 +286,15 @@ class _DeferredOmegaConf:
 def save_model(
     model_name: str,
     label_key: str,
-    model: CryoVIT | UNet3D,
+    model: CryoVIT | UNet3D | SAM2Model,
     save_path: str | Path,
 ) -> Path:
     """Write ``model`` as a reference-format ``.model`` artifact (the format
     of ``cryovit_tpu.train.torch_export.save_torch_model``): f32 CPU tensors
     under the reference's parameter names, the model type and config of its
-    family."""
-    model_type = next(t for t, (cls, _) in _MODULES.items() if isinstance(model, cls))
+    family (a SAM2 module says whether it is MedSAM's)."""
+    model_type = getattr(model, "model_type", None) or next(
+        t for t, (cls, _) in _MODULES.items() if isinstance(model, cls))
     sd = OrderedDict(
         (k, v.detach().to("cpu", torch.float32).contiguous())
         for k, v in model.state_dict().items()

@@ -18,8 +18,15 @@ Replaces PyTorch Lightning (reference ``BaseTrainer`` config and the
 
 The logged names are the JAX package's: ``train_<loss>``,
 ``train_<metric>``, ``grad_norm_preclip``, ``grad_norm``, ``epoch_*``,
-``val_*`` and ``epoch_time_s``. Not ported yet: the device mesh
-(``shard_map`` data parallelism) and ``prepare_inputs`` (SAM2).
+``val_*`` and ``epoch_time_s``.
+
+The model family's hooks are the JAX package's: ``prepare_inputs(data,
+items)`` turns a batch on the device into the module's input (SAM2's
+conditioning-slice draw and cached pyramids), ``train_mode`` is set around
+the fit epochs, ``apply_with_aux`` returns the extra outputs that
+``compute_losses(..., aux=...)`` reads (SAM2's prompt loss), and
+``make_optimizer(module)`` builds the optimizer with the family's parameter
+groups. Not ported yet: the device mesh (``shard_map`` data parallelism).
 """
 
 from __future__ import annotations
@@ -106,16 +113,30 @@ class Trainer:
         label = torch.from_numpy(np.ascontiguousarray(batch.label)).to(self.device)
         return data, label
 
-    def train_step(self, data: torch.Tensor, label: torch.Tensor) -> dict[str, torch.Tensor]:
-        """One optimizer step on a batch already on the device; returns the
-        step's logs as device scalars (nothing is synchronised here)."""
+    @staticmethod
+    def prepare(model: BaseModel, data: torch.Tensor, items) -> Any:
+        """The module's input for a batch on the device: the family's
+        ``prepare_inputs(data, items)`` where it has one, else ``data``."""
+        prepare = getattr(model, "prepare_inputs", None)
+        return prepare(data, items) if prepare is not None else data
+
+    def train_step(self, data, label: torch.Tensor) -> dict[str, torch.Tensor]:
+        """One optimizer step on a batch already on the device (``data`` as
+        :meth:`prepare` gives it); returns the step's logs as device scalars
+        (nothing is synchronised here)."""
         module, model, optimizer = self.module, self.model, self.optimizer
         module.train()
         optimizer.zero_grad(set_to_none=True)
-        preds = module(data)
+        preds, aux = model.apply_with_aux(module, data)
         mask = prediction_mask(label)
-        losses = model.compute_losses(preds, label, mask)
+        losses = model.compute_losses(preds, label, mask, aux=aux)
         losses["total"].backward()
+        # a parameter the loss did not reach still takes AdamW's weight
+        # decay, as optax applies it to a zero gradient
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         # the reference logs the post-clip norm; the pre-clip one is what
         # explosion monitoring needs, so both are logged
         pre, post = clip_gradients(
@@ -139,11 +160,11 @@ class Trainer:
         module.eval()
         sums: dict[str, float] = {}
         count = 0
-        for batch, _ in loader:
+        for batch, items in loader:
             data, label = self.to_device(batch)
-            preds = module(data)
+            preds, aux = model.apply_with_aux(module, self.prepare(model, data, items))
             mask = prediction_mask(label)
-            losses = model.compute_losses(preds, label, mask)
+            losses = model.compute_losses(preds, label, mask, aux=aux)
             for k, v in {**losses, **model.compute_metrics(preds, label, mask)}.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1
@@ -184,17 +205,19 @@ class Trainer:
 
     @torch.inference_mode()
     def eval_step(
-        self, module: nn.Module, model: BaseModel, data: torch.Tensor, label: torch.Tensor,
+        self, module: nn.Module, model: BaseModel, data, label: torch.Tensor,
         aux_mask: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
-        """Predictions, losses and metrics of a batch on the device."""
-        preds = module(data)
+        """Predictions, losses and metrics of a batch on the device (``data``
+        as :meth:`prepare` gives it)."""
+        preds, aux = model.apply_with_aux(module, data)
         mask = prediction_mask(label, aux_mask)
-        return preds, model.compute_losses(preds, label, mask), model.compute_metrics(preds, label, mask)
+        losses = model.compute_losses(preds, label, mask, aux=aux)
+        return preds, losses, model.compute_metrics(preds, label, mask)
 
     @torch.inference_mode()
-    def predict_step(self, module: nn.Module, data: torch.Tensor) -> torch.Tensor:
-        return module(data)
+    def predict_step(self, module: nn.Module, data, model: BaseModel) -> torch.Tensor:
+        return model.apply(module, data)
 
     def test(
         self, model: BaseModel, datamodule, module: nn.Module | None = None
@@ -208,7 +231,8 @@ class Trainer:
         for batch, items in datamodule.test_loader():
             data, label = self.to_device(batch)
             preds, losses, metrics = self.eval_step(
-                module, model, data, label, self._aux_mask(model, batch, items)
+                module, model, self.prepare(model, data, items), label,
+                self._aux_mask(model, batch, items),
             )
             result = self._build_result(preds.float().cpu().numpy(), losses, metrics, items)
             for cb in self.callbacks:
@@ -217,16 +241,21 @@ class Trainer:
             results.append(result)
         return results
 
-    def predict(self, datamodule, module: nn.Module | None = None) -> list[BatchedModelResult]:
+    def predict(
+        self, datamodule, module: nn.Module | None = None, model: BaseModel | None = None
+    ) -> list[BatchedModelResult]:
         """Predictions for each batch of the datamodule's prediction loader;
         each batch's result goes to the callbacks' ``on_predict_batch_end``.
-        (The JAX package's ``predict`` takes the model family too, for
-        SAM2's ``prepare_inputs``; nothing here needs it.)"""
+        ``model`` (default: the family :meth:`fit` trained) prepares the
+        inputs and runs the forward."""
         module = self._eval_module(module)
+        model = model if model is not None else self.model
+        if model is None:
+            raise ValueError("Trainer.predict needs the model family: pass model= or fit first")
         results = []
         for batch, items in datamodule.predict_loader():
             data = torch.from_numpy(np.ascontiguousarray(batch.data)).to(self.device)
-            preds = self.predict_step(module, data)
+            preds = self.predict_step(module, self.prepare(model, data, items), model)
             result = self._build_result(preds.float().cpu().numpy(), {}, {}, items)
             for cb in self.callbacks:
                 if hasattr(cb, "on_predict_batch_end"):
@@ -270,19 +299,27 @@ class Trainer:
 
     # ---- fit ----------------------------------------------------------------
 
+    @staticmethod
+    def _trained(module: nn.Module) -> dict[str, nn.Parameter]:
+        return {n: p for n, p in module.named_parameters() if p.requires_grad}
+
     def fit(
         self,
         model: BaseModel,
         datamodule,
         variables: dict[str, torch.Tensor] | None = None,
         ckpt_path: str | Path | None = None,
+        pretrained_variables: dict | None = None,
     ) -> nn.Module:
         """Train ``model`` on the datamodule's loaders for ``max_epochs``.
 
         ``variables`` is a state dict with the reference's names to start
-        from (random weights from the seed otherwise); ``ckpt_path`` a
-        ``last.ckpt`` to resume from. Returns the trained module, with the
-        SWA average swapped in when that callback ran.
+        from (random weights from the seed otherwise); ``pretrained_variables``
+        a partial one laid over the initial weights (SAM2's published
+        checkpoint: every module but the LoRA factors and the prompt
+        predictor); ``ckpt_path`` a ``last.ckpt`` to resume from. Returns the
+        trained module, with the SWA average swapped in when that callback
+        ran.
         """
         generator = seed_everything(self.seed)
         train_loader = datamodule.train_loader()
@@ -295,10 +332,20 @@ class Trainer:
         module = model.build_module(
             variables, self.device, generator=generator, in_channels=first_batch.data.shape[-1]
         )
+        if variables is None and pretrained_variables is not None:
+            own = module.state_dict()
+            unknown = sorted(set(pretrained_variables) - set(own))
+            if unknown:
+                logger.warning("%d pretrained tensors have no place in the model: %s",
+                               len(unknown), ", ".join(unknown[:12]))
+            module.load_state_dict(
+                {k: torch.as_tensor(np.asarray(v, dtype=np.float32)) for k, v in
+                 pretrained_variables.items() if k in own}, strict=False)
+            logger.info("laid pretrained weights over the initialization")
         if self.enable_model_summary:
             n = sum(p.numel() for p in module.parameters())
             logger.info("model %s: %.2fM params on %s", model.name, n / 1e6, self.device)
-        optimizer = model.make_optimizer(module.parameters())
+        optimizer = model.make_optimizer(module)
         self.model, self.module, self.optimizer = model, module, optimizer
         self.step = 0
         start_epoch = 0
@@ -313,22 +360,25 @@ class Trainer:
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.perf_counter()
             train_loader.set_epoch(epoch)
+            model.train_mode = True  # SAM2 draws its cond slices by phase
             logs: dict[str, Any] = {}
-            for batch, _ in train_loader:
-                logs = self.train_step(*self.to_device(batch))
+            for batch, items in train_loader:
+                data, label = self.to_device(batch)
+                logs = self.train_step(self.prepare(model, data, items), label)
                 self.step += 1
                 if self.step % self.log_every_n_steps == 0:
                     self._log(self.step, logs)
 
             epoch_logs = {f"epoch_{k}": float(v) for k, v in logs.items()}
+            model.train_mode = False
             if val_loader is not None:
                 vals = self._run_eval_epoch(val_loader)
                 epoch_logs.update({f"val_{k}": v for k, v in vals.items()})
             epoch_logs["epoch_time_s"] = time.perf_counter() - t0
             self._log(self.step, epoch_logs)
 
-            if swa is not None:
-                swa.on_train_epoch_end(epoch, self.max_epochs, dict(module.named_parameters()))
+            if swa is not None:  # frozen parameters are not averaged: they stay bit for bit
+                swa.on_train_epoch_end(epoch, self.max_epochs, self._trained(module))
             for cb in self.callbacks:
                 if hasattr(cb, "on_train_epoch_end") and cb is not swa:
                     cb.on_train_epoch_end(epoch, epoch_logs)
@@ -342,8 +392,8 @@ class Trainer:
                 )
 
         if swa is not None:
-            averaged = swa.on_fit_end(dict(module.named_parameters()))
+            averaged = swa.on_fit_end(self._trained(module))
             with torch.no_grad():
-                for name, p in module.named_parameters():
+                for name, p in self._trained(module).items():
                     p.copy_(averaged[name])
         return module

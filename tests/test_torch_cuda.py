@@ -623,3 +623,62 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take(cuda):
                               ln[0][:100], ln[1][:100])
     with pytest.raises(TypeError, match="y in bf16"):
         fn.residual_layernorm(x, x, None, *ln, y_dtype=torch.float32)
+
+
+def _sam2_step(device, dtype, sd, x, label, **custom):
+    """One SAM2 train step's probabilities, total loss and the gradients of
+    the trained parameters."""
+    from cryovit_tpu_torch.models import SAM2
+    from cryovit_tpu_torch.models.base import prediction_mask
+    from cryovit_tpu_torch.models.losses import DiceLoss
+
+    fam = SAM2(name="SAM2", input_key="data", lr=5e-5, losses={"dice_loss": DiceLoss()},
+               metrics={}, dtype=dtype, custom_kwargs=custom)
+    module = fam.build_module(sd, device)
+    y = label.to(device)
+    preds, aux = fam.apply_with_aux(module, x.to(device))
+    losses = fam.compute_losses(preds, y, prediction_mask(y), aux=aux)
+    losses["total"].backward()
+    return (preds.detach().float().cpu(), losses["total"].item(),
+            {n: p.grad.float().cpu() for n, p in module.named_parameters() if p.grad is not None})
+
+
+def test_sam2_train_step_matches_the_cpu(cuda):
+    """One SAM2 train step at SAM2Config.tiny_test()'s widths and 256² on 32
+    slices of a blob tomogram, GPU bf16 against CPU f32: ``chip_smoke.py``'s
+    SAM2 train reference, run as the smoke script runs it. Probabilities,
+    loss, and per group of trained leaves the gradient's direction (1 − cos)
+    and size (|ln norm ratio|), each within the train reference's limit or
+    twice the CPU bf16 plain path's own reading; the limits must reject a
+    planted zero and a sign-flipped gradient in every group."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.sam2_reference_phase(cuda)  # raises on any failed check
+
+
+def test_sam2_hiera_l_train_step_launches_rows_9_to_11(cuda):
+    """A SAM2 train step at full width (SAM2Config.large(), 512²) on 8 slices
+    with the encoder run live in chunks of 4: each chunk launches Hiera-L's
+    32 fused window blocks (rows 9 and 10) and 3 global attentions (row
+    11), so the step launches 64 / 64 / 6 (the 128-slice crop's two
+    64-slice chunks give the same), nothing else; the probabilities are
+    finite and in [0, 1]."""
+    from cryovit_tpu_torch.models.sam2.config import SAM2Config
+    from cryovit_tpu_torch.models.sam2.model import random_sam2_state_dict
+
+    sd = random_sam2_state_dict(SAM2Config.large(), torch.Generator(device=cuda).manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand(1, 8, 512, 512, 1, generator=gen)
+    label = (torch.rand(1, 8, 512, 512, generator=gen) > 0.5).to(torch.int8)
+    kernels.reset_launch_counts()
+    probs, loss, grads = _sam2_step(cuda, torch.bfloat16, sd, x, label, encoder_chunk=4)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    assert counts == {"window_block_attention": 64, "window_block_mlp": 64, "window_attention": 6}
+    assert torch.isfinite(probs).all() and 0 <= probs.min() and probs.max() <= 1
+    assert any(n.startswith("prompt_predictor.") for n in grads)

@@ -167,14 +167,24 @@ def test_hdf_roundtrip_picks_the_most_unique_key(tmp_path, rng):
     np.testing.assert_array_equal(data, vol)
 
 
-@pytest.mark.parametrize("family", ["sam2", "medsam"])
+@pytest.mark.parametrize("family", ["medsam"])
 def test_cli_verbs_not_yet_ported_exit_with_a_message(family, capsys, tmp_path):
-    """``train --model sam2|medsam`` (the SAM2 families, not ported yet)
-    exits 2 and says so, before anything is read or built."""
+    """``train --model medsam`` is refused with ROADMAP C2's message
+    (Hiera-T's odd q-pool window) before anything is read or built."""
     argv = ["train", str(tmp_path), str(tmp_path), "mito", "--labels", "mito",
             "--model", family, "--device", "cpu"]
-    assert main(argv) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="C2"):
+        main(argv)
+
+
+@pytest.mark.parametrize("family", ["cryovit", "unet3d", "sam2"])
+def test_cli_train_refuses_an_empty_data_folder(family, tmp_path):
+    """Every ported ``train --model`` gets past the CLI and refuses a data
+    folder with no tomogram in it, naming the folder."""
+    argv = ["train", str(tmp_path), str(tmp_path), "mito", "--labels", "mito",
+            "--model", family, "--device", "cpu"]
+    with pytest.raises(ValueError, match=f"No valid tomogram files found in {tmp_path}"):
+        main(argv)
 
 
 def _eval_files(root):
