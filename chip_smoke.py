@@ -61,7 +61,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    gradient's direction and size, each limit the train reference's or twice
    the larger of two yardsticks (CPU bf16; CPU f32 on the input + 1e-3
    noise), printed beside it; planted zero and sign-flipped gradients must
-   fail the limits in every group.
+   fail the limits in every group. Last, the w8a8 reference (``--int8``,
+   ``ops/quant.py``): GPU bf16 against CPU f32, both int8, on the serving
+   reference's small DINOv2 pair path (features and probabilities) and on
+   the SAM reference's two Hiera widths (per FPN level), the weights given
+   outlier output channels; each limit 2e-2 or twice the CPU's own bf16
+   reading; the kernels and int8 products the gates give (4; 9 each), and
+   two planted faults (a per-tensor weight scale, the activation scales on
+   swapped token axes) must read above a limit.
 7. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
    the full-width DINOv2 ViT-g/14 with seeded random weights and a seeded
    CryoVIT decoder saved as a ``.model``; fused inference (raw tomogram →
@@ -78,7 +85,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    40 scale and 40 operand launches per mode (none under the default), finite
    features within relative L2 0.1 of the default's (a check of finiteness
    and layout: bf16-level differences move 40 blocks as far, so the kernel
-   rows hold the int8 arithmetic), device ms, slices/s, peak memory.
+   rows hold the int8 arithmetic), device ms, slices/s, peak memory. Then
+   the w8a8 mode on the same weights (only the int8 qkv and w12 copies are
+   new) and tomogram: ``features --int8``'s extractor (exactly 40
+   ``flash_attention`` launches and 80 int8 products a batch; features
+   against the default's, also at LayerScale 0.2; slices/s, peak memory;
+   device ms of one batch beside the bf16 default's, in turns; a profile
+   split into int8 products, quantize and dequantize passes, the attention
+   kernel, bf16 cuBLAS and the rest), ``infer --fused --int8`` (masks
+   against the bf16 fused masks, slices/s), and its two products alone at
+   ViT-g's block shapes (``torch._int_mm`` beside bf16 ``F.linear`` and
+   their bounds, the whole w8a8 projection and its quantize pass).
 8. training main path — a synthetic 128×512×512 tomogram of bright blobs on
    noise, its ViT-g/14 features and blob labels; ``Trainer.fit`` of the
    full-width decoder in bf16 for 8 epochs with SWA and validation through
@@ -100,7 +117,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    global blocks run the attention kernel at head width 96; exactly 0/0/3
    launches per batch), slices/s and peak memory, with the last stage's
    window 14 instead of 7 (``HIERA_T_LAST_WINDOW``: with 7 the q-pool
-   block 10 fails in the JAX reference and the port alike).
+   block 10 fails in the JAX reference and the port alike). Between the
+   two, ``features --use-sam --int8``'s extractor at Hiera-L: exactly
+   32/32/3 launches and 29 int8 products a batch, the pyramids against the
+   bf16 ones per level, slices/s, peak memory, device ms of one encoder
+   batch beside the bf16 encoder's.
 10. UNet3D training main path — ``train --model unet3d`` one step below its
    file readers: a synthetic 128×512×512 blob tomogram's raw voxels,
    ``Trainer.fit`` of the full-width U-Net (bf16 on f32 masters, AdamW lr
@@ -267,6 +288,28 @@ INT8_AGREEMENT = 0.1
 # of the few rows that attend to the ×16 value row), so every row counts
 # alike here. Planted faults of the plain version must read above it.
 INT8_ROW_RMS = 2.0**-7
+# the w8a8 mode (--int8, ops/quant.py): its int8 products per ViT-g block on
+# the pair path (qkv, w12), and per Hiera-L batch at 512² (the JAX package's
+# _Dense calls: the qkv of the 13 blocks that take no attention gate, fc1 of
+# the 16 that take no window-block gate)
+W8A8_DINO_PER_BLOCK = 2
+W8A8_SAM_PER_BATCH = 29
+# the same in the SAM reference's Hiera (stages (1, 1, 3, 1)): blocks 0, 1,
+# 2 and 5 both products, block 4 (global) fc1, block 3 (fused) none
+W8A8_SAM_REF_PRODUCTS = 9
+# the two products alone at ViT-g's block shapes for a 64-slice batch at
+# 512²: (rows = 64 × 1029 tokens, K, N)
+W8A8_PRODUCT_SHAPES = {"qkv": (65856, 1536, 4608), "w12": (65856, 1536, 8192)}
+# the w8a8 reference (GPU bf16 against CPU f32, both int8): the serving
+# reference's limit, widened to twice the CPU's own bf16 reading where larger
+W8A8_REF_LIMIT = 2e-2
+# outlier output channels planted into the reference weights (v third of
+# qkv, w12, fc1): an eighth of the rows scaled by 16. Trained projections
+# differ by channel, which is why their scales are per channel; seeded
+# lecun-normal rows do not, and a per-tensor scale would pass unseen on them
+W8A8_OUTLIER_ROWS, W8A8_OUTLIER_SCALE = 1 / 8, 16.0
+W8A8_FAULTS = ("one weight scale per tensor, not per output channel",
+               "activation scales broadcast on the wrong axes (the two token axes swapped)")
 # H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -941,6 +984,54 @@ def planted(fa, fault):
         fa.attention_int8_scales_reference = real
 
 
+def _per_tensor_weight(weight):
+    """Fault: one int8 scale for the whole weight."""
+    wf = weight.float()
+    scale = wf.abs().max().clamp_min(1e-12) * (1.0 / 127.0)
+    wq = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return wq.contiguous(), scale.expand(weight.shape[0]).contiguous()
+
+
+@contextlib.contextmanager
+def w8a8_fault(fault: str):
+    """The w8a8 mode with one of ``W8A8_FAULTS`` planted: the models'
+    weight quantization, or the activation quantization of
+    ``ops/quant.py:int8_linear``."""
+    from cryovit_tpu_torch.models import dinov2
+    from cryovit_tpu_torch.models.sam2 import hiera
+    from cryovit_tpu_torch.ops import quant
+
+    if fault == W8A8_FAULTS[0]:
+        targets = [(dinov2, "quantize_weight", _per_tensor_weight),
+                   (hiera, "quantize_weight", _per_tensor_weight)]
+    else:
+        honest = quant.int8_quant
+
+        def swapped(x, dim):
+            q, s = honest(x, dim)
+            return q, (s.transpose(-2, -3).reshape(s.shape) if dim == -1 else s)
+
+        targets = [(quant, "int8_quant", swapped)]
+    saved = [(module, attr, getattr(module, attr)) for module, attr, _ in targets]
+    for module, attr, fn in targets:
+        setattr(module, attr, fn)
+    try:
+        yield
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+
+
+def _outlier_channels(state: dict, rows: dict, seed: int) -> None:
+    """Scale a random ``W8A8_OUTLIER_ROWS`` of the given output rows of each
+    named weight by ``W8A8_OUTLIER_SCALE``, in place."""
+    g = torch.Generator().manual_seed(seed)
+    for key, sl in rows.items():
+        w = state[key][sl]
+        picked = torch.rand(w.shape[0], generator=g) < W8A8_OUTLIER_ROWS
+        w[picked] *= W8A8_OUTLIER_SCALE
+
+
 def int8_attention_rows(dev: torch.device) -> dict[str, dict]:
     """The int8 attention (each of ``INT8_MODES``) and its two pre-pass
     launches (the scales; K and V as the body's operands) against their
@@ -1367,6 +1458,134 @@ def sam_reference_phase(dev: torch.device) -> None:
     _report_checks(checks, "SAM reference")
 
 
+def w8a8_reference_phase(dev: torch.device) -> None:
+    """The w8a8 mode on small inputs, GPU bf16 against CPU f32, both int8,
+    the same seeded weights with outlier rows in the v third of qkv, w12 and
+    fc1 (``W8A8_OUTLIER_ROWS``): the DINOv2 pair path (``reference_phase``'s
+    small backbone, LayerScale 0.5, and the full decoder: the features'
+    relative L2 and max|dprob|) and the Hiera of ``sam_reference_phase`` at
+    widths 72 and 96, which open both kernel gates (relative L2 per FPN
+    level). Each limit is ``W8A8_REF_LIMIT``, or twice the CPU's own
+    bf16-int8 reading against f32-int8 where that is larger; the GPU runs
+    launch the kernels and the int8 products their gates give, and each of
+    ``W8A8_FAULTS``, planted in the GPU run, must read above a limit."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.models.cryovit import make_cryovit, random_cryovit_state_dict
+    from cryovit_tpu_torch.models.dinov2 import DinoV2Config, make_dinov2
+    from cryovit_tpu_torch.models.fused import FusedDinoCryoVIT
+    from cryovit_tpu_torch.models.sam2.config import HieraConfig, SAM2Config
+    from cryovit_tpu_torch.models.sam2.encoder import make_image_encoder
+    from cryovit_tpu_torch.ops import quant
+    from cryovit_tpu_torch.run.dino_features import load_dinov2_variables
+    from cryovit_tpu_torch.run.sam_features import SamFeatureExtractor, make_sam_encoder_state
+
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    checks = {}
+    cfg = DinoV2Config(embed_dim=128, depth=2, num_heads=2, ffn_hidden=256, pos_grid=8)
+    dino_sd, _ = load_dinov2_variables(random_init=True, cfg=cfg, device="cpu", seed=2)
+    for name, t in dino_sd.items():
+        if name.endswith(".gamma"):
+            t.fill_(0.5)
+    c = cfg.embed_dim
+    _outlier_channels(dino_sd, {**{f"blocks.{i}.attn.qkv.weight": slice(2 * c, 3 * c)
+                                  for i in range(cfg.depth)},
+                               **{f"blocks.{i}.mlp.w12.weight": slice(None)
+                                  for i in range(cfg.depth)}}, seed=7)
+    dec_sd = random_cryovit_state_dict(torch.Generator().manual_seed(3), in_channels=128)
+    dec_sd["output_layer.2.weight"] *= 40.0
+    stack = torch.rand(4, 128, 160, generator=torch.Generator().manual_seed(4))
+
+    def segment(device, dtype):
+        """(features, probabilities) of fused inference, on the CPU."""
+        fused = FusedDinoCryoVIT(make_dinov2(dino_sd, cfg, device=device, dtype=dtype,
+                                             quant_int8=True),
+                                 make_cryovit(dec_sd, device=device, dtype=dtype))
+        seen = []
+        hook = fused.backbone.register_forward_hook(lambda m, a, out: seen.append(out))
+        probs = fused.segment(stack).float().cpu()
+        hook.remove()
+        return torch.cat(seen).float().cpu(), probs
+
+    def readings(got, want):
+        """(relative L2 of the features, max|dprob|)."""
+        return (((got[0] - want[0]).norm() / want[0].norm()).item(),
+                (got[1] - want[1]).abs().max().item())
+
+    want = segment(cpu, torch.float32)
+    limits = [max(W8A8_REF_LIMIT, 2 * r) for r in readings(segment(cpu, bf16), want)]
+    kernels.reset_launch_counts()
+    quant.reset_launch_count()
+    got = segment(dev, bf16)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    products = quant.launch_count()
+    rel, err = readings(got, want)
+    log("w8a8-ref", f"DINOv2 pair path int8: 4x128x160 tomogram, small backbone + full decoder: "
+        f"GPU bf16 vs CPU f32: features relative L2 {rel:.4g} (limit {limits[0]:.4g}), "
+        f"max|dprob| {err:.4g} (limit {limits[1]:.4g}), masks agree on "
+        f"{100 * ((got[1] >= 0.5) == (want[1] >= 0.5)).float().mean().item():.3f}% of voxels; "
+        f"GPU launches {counts}, int8 products {products}")
+    want_counts = {"flash_attention": 2, "conv3d_dm": 6, "convt2x_dm": 2}
+    checks.update({
+        "DINOv2: GPU bf16 int8 within the limits of CPU f32 int8":
+            rel <= limits[0] and err <= limits[1],
+        f"DINOv2: launches {want_counts} and {W8A8_DINO_PER_BLOCK * cfg.depth} int8 products":
+            counts == want_counts and products == W8A8_DINO_PER_BLOCK * cfg.depth,
+    })
+    for fault in W8A8_FAULTS:
+        with w8a8_fault(fault):
+            bad = readings(segment(dev, bf16), want)
+        log("w8a8-ref", f"DINOv2 with a planted fault ({fault}): features relative L2 "
+            f"{bad[0]:.4g}, max|dprob| {bad[1]:.4g}")
+        checks[f"DINOv2: the planted fault ({fault}) reads above a limit"] = (
+            bad[0] > limits[0] or bad[1] > limits[1])
+
+    images = np.random.default_rng(5).random((2, 512, 512)).astype(np.float32)
+    for width in (72, 96):
+        scfg = SAM2Config(hiera=HieraConfig(embed_dim=width, num_heads=1, stages=(1, 1, 3, 1),
+                                            window_spec=(8, 4, 16, 8), global_att_blocks=(4,)))
+        sd = make_sam_encoder_state(cfg=scfg, random_init=True, device="cpu", seed=3)
+        dims = [width] + [2 * width] * 1 + [4 * width] * 3 + [8 * width]  # dim_out per block
+        _outlier_channels(sd, {**{f"trunk.blocks.{i}.attn.qkv.weight": slice(2 * d, 3 * d)
+                                 for i, d in enumerate(dims)},
+                              **{f"trunk.blocks.{i}.mlp.layers.0.weight": slice(None)
+                                 for i in range(len(dims))}}, seed=8)
+
+        def pyramids(device, dtype):
+            encoder = make_image_encoder(sd, scfg, device=device, dtype=dtype, quant_int8=True)
+            return SamFeatureExtractor(encoder, batch_size=2).extract(images)["backbone_fpn"]
+
+        want = pyramids(cpu, torch.float32)
+        limits = [max(W8A8_REF_LIMIT, 2 * r) for _, r in _pyramid_agreement(pyramids(cpu, bf16),
+                                                                            want)]
+        kernels.reset_launch_counts()
+        quant.reset_launch_count()
+        agree = _pyramid_agreement(pyramids(dev, bf16), want)
+        counts = {k: n for k, n in kernels.launch_counts().items() if n}
+        products = quant.launch_count()
+        log("w8a8-ref", f"Hiera {width}-wide int8, 2x512x512 slices, GPU bf16 vs CPU f32 per FPN "
+            "level: " + ", ".join(f"level {i} cos {c:.6f} rel L2 {r:.4g} (limit {lim:.4g})"
+                                  for i, ((c, r), lim) in enumerate(zip(agree, limits)))
+            + f"; launches {counts}, int8 products {products}")
+        checks.update({
+            f"Hiera {width}: every level within its limit":
+                all(r <= lim for (_, r), lim in zip(agree, limits)),
+            f"Hiera {width}: each kernel once and {W8A8_SAM_REF_PRODUCTS} int8 products":
+                counts == dict.fromkeys(SAM_BATCH_LAUNCHES, 1)
+                and products == W8A8_SAM_REF_PRODUCTS,
+        })
+        for fault in W8A8_FAULTS:
+            with w8a8_fault(fault):
+                bad = _pyramid_agreement(pyramids(dev, bf16), want)
+            log("w8a8-ref", f"Hiera {width} with a planted fault ({fault}): rel L2 per level "
+                + " ".join(f"{r:.4g}" for _, r in bad))
+            checks[f"Hiera {width}: the planted fault ({fault}) reads above a limit"] = any(
+                r > lim for (_, r), lim in zip(bad, limits))
+    _report_checks(checks, "w8a8 reference")
+
+
 def sam_serving_phase(dev: torch.device, workdir: Path, tiny: bool = False) -> dict[str, int]:
     """``features --use-sam``'s extractor on a 64×512×512 tomogram at full
     width, seeded weights, bf16, slice batch 64: Hiera-L
@@ -1447,6 +1666,9 @@ def sam_serving_phase(dev: torch.device, workdir: Path, tiny: bool = False) -> d
                  f"one {SLICE_BATCH}-slice SAM2 batch", SAM_PROFILE_GROUPS,
                  "elementwise, norms, softmax, copies on the device", name, top=15)
     _report_checks(checks, f"SAM {label} serving path")
+    if not tiny:
+        w8a8 = sam_w8a8_phase(dev, cfg, encoder, files, volume, fpn)
+        counts = {k: counts[k] + w8a8[k] for k in counts}
     if importlib.util.find_spec("h5py") is None:
         log("sam", "h5py is not installed here: save_feature_hdf (run_sam's writer) is not run; "
             "the pyramids above come from extract_sam_features, the step right below it")
@@ -1455,6 +1677,80 @@ def sam_serving_phase(dev: torch.device, workdir: Path, tiny: bool = False) -> d
         save_feature_hdf({"data": volume}, feats, f"{path.stem}.hdf", workdir / out_dir)
         log("sam", f"wrote {out_dir}/{path.stem}.hdf")
     del encoder, extractor
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sam_w8a8_phase(dev: torch.device, cfg, encoder, files, volume, default_fpn) -> dict[str, int]:
+    """``features --use-sam --int8``'s extractor: Hiera-L built by
+    ``load_sam_encoder(quant_int8=True)`` from the same seed as the bf16
+    encoder, on the same 64×512×512 tomogram: launches (exactly 32/32/3 of
+    rows 9/10/11 and ``W8A8_SAM_PER_BATCH`` int8 products a batch), the
+    pyramids against the bf16 ones (cosine and relative L2 per level),
+    slices/s with host I/O, peak memory, and device ms of one encoder batch
+    beside the bf16 encoder's, in turns. Returns the launches."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.ops import quant
+    from cryovit_tpu_torch.run.sam_features import (
+        SamFeatureExtractor,
+        extract_sam_features,
+        load_sam_encoder,
+    )
+
+    name = torch.cuda.get_device_name(0)
+    encoder8 = load_sam_encoder(random_init=True, cfg=cfg, device=dev, quant_int8=True)
+    extractor = SamFeatureExtractor(encoder8, batch_size=SLICE_BATCH)
+    extractor.extract(np.zeros((8, SIDE, SIDE), np.float32))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    quant.reset_launch_count()
+    t0 = time.perf_counter()
+    _, _, feats = next(iter(extract_sam_features(files, extractor)))
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    counts, products = kernels.launch_counts(), quant.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-DEPTH // SLICE_BATCH)
+    want = {**dict.fromkeys(kernels.KERNELS, 0),
+            **{k: n * batches for k, n in SAM_BATCH_LAUNCHES.items()}}
+    fpn = feats["backbone_fpn"]
+    agree = _pyramid_agreement(fpn, default_fpn)
+    log("sam-w8a8", f"features --use-sam --int8 (Hiera-L): {DEPTH} slices in {t_feat:.3f} s = "
+        f"{DEPTH / t_feat:.2f} slices/s, MRC read and fp16 pyramids back on the host included, "
+        f"peak device memory {peak / 2**30:.2f} GiB ({name})")
+    log("sam-w8a8", "pyramids against the bf16 ones: " + ", ".join(
+        f"level {i} cos {c:.6f} rel L2 {r:.4g}" for i, (c, r) in enumerate(agree))
+        + f"; launches { {k: n for k, n in counts.items() if n} }, int8 products {products}")
+    x = torch.from_numpy(np.ascontiguousarray(volume[:SLICE_BATCH], np.float32)).to(dev)
+    x = x[..., None].expand(-1, -1, -1, encoder.trunk.patch_embed.proj.in_channels)
+    encoders = {"bf16": encoder, "w8a8": encoder8}
+    device_ms = {k: [] for k in encoders}
+    with torch.inference_mode():
+        for what in ("bf16", "w8a8", "w8a8", "bf16"):
+            encoders[what](x)  # warm-up
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            encoders[what](x)
+            stop.record()
+            torch.cuda.synchronize()
+            device_ms[what].append(start.elapsed_time(stop))
+    log("sam-w8a8", f"one {SLICE_BATCH}-slice Hiera-L + FPN batch, device ms in turns (bf16, "
+        "w8a8, w8a8, bf16): " + "; ".join(
+            f"{k} {' '.join(f'{v:.3f}' for v in ms)} (mean {statistics.mean(ms):.3f})"
+            for k, ms in device_ms.items()) + f" ({name})")
+    shapes = [f.shape for f in default_fpn]
+    _report_checks({
+        f"SAM w8a8: backbone_fpn {shapes} fp16 finite": [f.shape for f in fpn] == shapes
+        and all(f.dtype == np.float16 and np.isfinite(f).all() for f in fpn),
+        f"SAM w8a8: launches {want} and {W8A8_SAM_PER_BATCH * batches} int8 products":
+            counts == want and products == W8A8_SAM_PER_BATCH * batches,
+        "SAM w8a8: cosine >= 0.99 per level against the bf16 pyramids (layout; the reference "
+        "phase holds the arithmetic)": all(c >= 0.99 for c, _ in agree),
+    }, "SAM w8a8 serving path")
+    del encoder8, extractor, x
     torch.cuda.empty_cache()
     return counts
 
@@ -1557,9 +1853,11 @@ def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     del extractor
     variant_counts = dino_variants_phase(dev, segmenter.backbone, files, feats, DEPTH / t_feat)
     int8_counts = int8_attention_phase(dev, segmenter.backbone)
+    w8a8_counts = w8a8_serving_phase(dev, segmenter, files, feats, masks,
+                                     {"extraction": DEPTH / t_feat, "fused": DEPTH / t_infer})
     del segmenter
     torch.cuda.empty_cache()
-    return {k: counts[k] + variant_counts[k] + int8_counts[k] for k in counts}
+    return {k: counts[k] + variant_counts[k] + int8_counts[k] + w8a8_counts[k] for k in counts}
 
 
 # kernel-name fragments → the layer a device kernel of the DINOv2 forward
@@ -1580,6 +1878,256 @@ INT8_PROFILE_GROUPS = (
     *DINO_PROFILE_GROUPS[:3],
     DINO_PROFILE_GROUPS[4],
 )
+
+
+def w8a8_serving_phase(dev: torch.device, segmenter, files, default_feats, default_masks,
+                       default_rates: dict[str, float]) -> dict[str, int]:
+    """``features --int8`` and ``infer --fused --int8`` on the serving
+    phase's ViT-g/14 weights (shared, not copied: only the int8 qkv and w12
+    copies are new) and tomogram: the extractor's launches (exactly 40
+    ``flash_attention`` and 80 int8 products a batch), features against the
+    bf16 default's (and, for one batch, at LayerScale
+    ``AGREEMENT_LAYERSCALE``), slices/s with host I/O, peak memory, device ms
+    of one batch beside the bf16 default's (in turns), a profile split into
+    the int8 products, the quantize and dequantize passes, the attention
+    kernel, bf16 cuBLAS and the rest; fused inference's masks against the
+    bf16 fused masks and its slices/s; then the two products alone at their
+    block shapes (:func:`w8a8_product_rows`). Returns the launches."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.callbacks import threshold_masks
+    from cryovit_tpu_torch.data.transforms import dino_device_preprocess
+    from cryovit_tpu_torch.models.dinov2 import make_dinov2
+    from cryovit_tpu_torch.models.fused import FusedDinoCryoVIT
+    from cryovit_tpu_torch.ops import quant
+    from cryovit_tpu_torch.run.dino_features import DinoExtractor, extract_features
+    from cryovit_tpu_torch.run.infer_model import fused_predictions
+
+    name = torch.cuda.get_device_name(0)
+    backbone = segmenter.backbone
+    cfg, dtype = backbone.cfg, backbone.pos_embed.dtype
+    state = backbone.state_dict()
+    batches = -(-DEPTH // SLICE_BATCH)
+    model = make_dinov2(state, cfg, device=dev, dtype=dtype, quant_int8=True)
+    int8_bytes = sum(b.numel() * b.element_size() for n, b in model.named_buffers() if "int8" in n)
+    extractor = DinoExtractor(model, batch_size=SLICE_BATCH)
+    extractor.extract(np.zeros((8, SIDE, SIDE), np.float32))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    quant.reset_launch_count()
+    t0 = time.perf_counter()
+    _, volume, feats = next(iter(extract_features(files, extractor)))
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    counts, products = kernels.launch_counts(), quant.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**dict.fromkeys(kernels.KERNELS, 0), "flash_attention": cfg.depth * batches}
+    n_products = W8A8_DINO_PER_BLOCK * cfg.depth * batches
+    got, ref = (f.astype(np.float64).ravel() for f in (feats, default_feats))
+    cos = float(got @ ref / (np.linalg.norm(got) * np.linalg.norm(ref)))
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    log("w8a8", f"features --int8: {DEPTH} slices in {t_feat:.3f} s = {DEPTH / t_feat:.2f} "
+        f"slices/s (bf16 default, same run: {default_rates['extraction']:.2f}), peak device "
+        f"memory {peak / 2**30:.2f} GiB, int8 weight copies {int8_bytes / 2**30:.3f} GiB ({name})")
+    log("w8a8", f"features --int8: {feats.shape} {feats.dtype}; against the bf16 default's: "
+        f"cosine {cos:.6f}, relative L2 {rel:.4g}; launches "
+        f"{ {k: n for k, n in counts.items() if n} }, int8 products {products}")
+    shape = (cfg.embed_dim, DEPTH, SIDE // 16, SIDE // 16)
+    checks = {
+        "w8a8 backbone shares the default's weights": (
+            model.pos_embed.data_ptr() == backbone.pos_embed.data_ptr()
+            and model.blocks[0].mlp.w12.weight.data_ptr()
+            == backbone.blocks[0].mlp.w12.weight.data_ptr()),
+        f"features --int8: {shape} fp16 finite": feats.shape == shape
+        and feats.dtype == np.float16 and bool(np.isfinite(feats).all()),
+        f"features --int8: launches {want} and {n_products} int8 products":
+            counts == want and products == n_products,
+        "features --int8, LayerScale 1e-5 (layout only): cosine >= 0.999 against the default":
+            cos >= 0.999,
+    }
+    total = counts
+
+    x = dino_device_preprocess(torch.as_tensor(volume[:SLICE_BATCH]).to(dev))
+    models = {"bf16 default": backbone, "w8a8": model}
+    device_ms = {k: [] for k in models}
+    with torch.inference_mode():
+        for what in ("bf16 default", "w8a8", "w8a8", "bf16 default"):
+            models[what](x)  # warm-up
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            models[what](x)
+            stop.record()
+            torch.cuda.synchronize()
+            device_ms[what].append(start.elapsed_time(stop))
+    log("w8a8", f"one {SLICE_BATCH}-slice ViT-g/14 batch at {SIDE}^2, device ms in turns "
+        f"(bf16, w8a8, w8a8, bf16): " + "; ".join(
+            f"{k} {' '.join(f'{v:.3f}' for v in ms)} (mean {statistics.mean(ms):.3f})"
+            for k, ms in device_ms.items()) + f" ({name})")
+    scaled = {k: torch.full_like(t, AGREEMENT_LAYERSCALE) if k.endswith(".gamma") else t
+              for k, t in state.items()}
+    with torch.inference_mode():
+        ref_ls = make_dinov2(scaled, cfg, device=dev, dtype=dtype)(x).float()
+        got_ls = make_dinov2(scaled, cfg, device=dev, dtype=dtype, quant_int8=True)(x).float()
+    cos_ls = F.cosine_similarity(got_ls.flatten(), ref_ls.flatten(), dim=0).item()
+    rel_ls = ((got_ls - ref_ls).norm() / ref_ls.norm()).item()
+    log("w8a8", f"LayerScale {AGREEMENT_LAYERSCALE}, one batch: w8a8 features against the bf16 "
+        f"default's: cosine {cos_ls:.6f}, relative L2 {rel_ls:.4g}")
+    checks[f"w8a8, LayerScale {AGREEMENT_LAYERSCALE}: finite, relative L2 <= {INT8_AGREEMENT} "
+           "against the bf16 default (layout; the reference phase holds the arithmetic)"] = (
+        bool(torch.isfinite(got_ls).all()) and rel_ls <= INT8_AGREEMENT)
+    del scaled, ref_ls, got_ls
+    with torch.inference_mode():
+        _w8a8_profile(lambda: model(x), f"one {SLICE_BATCH}-slice ViT-g/14 batch, w8a8", name)
+
+    fused = FusedDinoCryoVIT(model, segmenter.decoder, slice_batch=SLICE_BATCH)
+    fused.segment(torch.zeros(8, SIDE, SIDE))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    quant.reset_launch_count()
+    t0 = time.perf_counter()
+    predictions = list(fused_predictions(files, fused))
+    torch.cuda.synchronize()
+    t_infer = time.perf_counter() - t0
+    counts, products = kernels.launch_counts(), quant.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    probs = predictions[0].preds[0]
+    masks = threshold_masks(probs, 0.5)
+    agree = float((masks == default_masks).mean())
+    log("w8a8", f"infer --fused --int8: {DEPTH} slices in {t_infer:.3f} s = {DEPTH / t_infer:.2f} "
+        f"slices/s (bf16 default, same run: {default_rates['fused']:.2f}), peak device memory "
+        f"{peak / 2**30:.2f} GiB ({name}); masks agree with the bf16 fused masks on "
+        f"{100 * agree:.3f}% of voxels (mask fraction {masks.mean():.4f} vs "
+        f"{default_masks.mean():.4f}); launches {({k: n for k, n in counts.items() if n})}, "
+        f"int8 products {products}")
+    checks.update({
+        "infer --fused --int8: probabilities finite, in [0, 1]":
+            probs.shape == (DEPTH, SIDE, SIDE) and bool(np.isfinite(probs).all())
+            and bool(probs.min() >= 0.0 and probs.max() <= 1.0),
+        f"infer --fused --int8: {cfg.depth * batches} flash_attention launches, the decoder's "
+        f"kernels, {n_products} int8 products":
+            counts["flash_attention"] == cfg.depth * batches and counts["conv3d_dm"] > 0
+            and counts["convt2x_dm"] > 0 and products == n_products,
+    })
+    total = {k: total[k] + counts[k] for k in total}
+    del fused, extractor, model, x
+    torch.cuda.empty_cache()
+    w8a8_product_rows(dev)
+    _report_checks(checks, "w8a8 serving path")
+    return total
+
+
+def w8a8_product_rows(dev: torch.device) -> None:
+    """The w8a8 mode's two products alone at ViT-g's block shapes
+    (``W8A8_PRODUCT_SHAPES``): ``torch._int_mm`` beside the bf16
+    ``F.linear`` and each one's bound, then the whole w8a8 projection
+    (``int8_linear``: quantize, product, dequantize) and its quantize pass,
+    CUDA events. The int8 product's bytes count its int32 output."""
+    from cryovit_tpu_torch.ops import quant
+
+    name = torch.cuda.get_device_name(0)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for what, (m, k, n) in W8A8_PRODUCT_SHAPES.items():
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device=dev) * k**-0.5).to(torch.bfloat16)
+        xq, sx = quant.int8_quant(x, -1)
+        wq, sw = quant.quantize_weight(w)
+        ms = {
+            "_int_mm": time_ms(lambda: torch._int_mm(xq, wq.t()), 10),
+            "bf16 F.linear": time_ms(lambda: F.linear(x, w), 10),
+            "int8_linear": time_ms(lambda: quant.int8_linear(x, wq, sw, None, torch.bfloat16), 10),
+            "quantize": time_ms(lambda: quant.int8_quant(x, -1), 10),
+        }
+        ops = 2 * m * k * n
+        int8_bound = with_bound({}, m * k + n * k + 4 * m * n, 0, ops)
+        bf16_bound = with_bound({}, 2 * (m * k + n * k + m * n), ops)
+        ref = F.linear(x.float(), w.float())
+        err = ((quant.int8_linear(x, wq, sw, None, torch.bfloat16).float() - ref).norm()
+               / ref.norm()).item()
+        log("w8a8", f"{what} product {m}x{k}x{n}: _int_mm {ms['_int_mm']:.3f} ms "
+            f"({ops / ms['_int_mm'] / 1e9:.1f} TOP/s; bound {int8_bound['bound_ms']:.3f} ms, "
+            f"{int8_bound['bound_by']}), bf16 F.linear {ms['bf16 F.linear']:.3f} ms "
+            f"({ops / ms['bf16 F.linear'] / 1e9:.1f} TFLOP/s; bound {bf16_bound['bound_ms']:.3f} "
+            f"ms, {bf16_bound['bound_by']}); whole int8_linear {ms['int8_linear']:.3f} ms, of "
+            f"which quantize {ms['quantize']:.3f}, dequantize (the rest) "
+            f"{ms['int8_linear'] - ms['quantize'] - ms['_int_mm']:.3f}; relative L2 against "
+            f"the f32 product {err:.4g} ({name})")
+        del x, w, xq, wq, ref
+        torch.cuda.empty_cache()
+
+
+# kernel-name fragments of cuBLAS's / CUTLASS's int8 GEMMs (torch._int_mm)
+INT8_GEMM_NAMES = ("gemm_s8", "s8s8", "i8i8", "imma", "igemm")
+W8A8_SPANS = ("w8a8 quantize", "w8a8 product and dequantize")
+
+
+def _w8a8_profile(run, what: str, name: str) -> None:
+    """Device time of one call of ``run`` split into the int8 products
+    (kernels named as ``INT8_GEMM_NAMES``), the quantize passes and the
+    dequantize passes (the device spans of profiler annotations wrapped
+    around ``int8_quant`` and ``int8_matmul`` for this call only, the
+    latter less the int8 products), the attention kernel and bf16 cuBLAS
+    (by kernel name), and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from cryovit_tpu_torch.ops import quant
+
+    honest_quant, honest_matmul = quant.int8_quant, quant.int8_matmul
+
+    def quantize(*args, **kw):
+        with record_function(W8A8_SPANS[0]):
+            return honest_quant(*args, **kw)
+
+    def matmul(*args, **kw):
+        with record_function(W8A8_SPANS[1]):
+            return honest_matmul(*args, **kw)
+
+    quant.int8_quant, quant.int8_matmul = quantize, matmul
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        quant.int8_quant, quant.int8_matmul = honest_quant, honest_matmul
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    spans = {e.key: e.self_device_time_total / 1e3 for e in device if e.key in W8A8_SPANS}
+    rows = sorted((e for e in device if e.key not in W8A8_SPANS),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    if total == 0:
+        log("profile", f"{what}: the profiler saw no device time; not measured")
+        return
+
+    def named(keys, skip=()):
+        return sum(e.self_device_time_total for e in rows if any(k in e.key for k in keys)
+                   and not any(k in e.key for k in skip)) / 1e3
+
+    products = named(INT8_GEMM_NAMES)
+    split = {
+        "int8 products (torch._int_mm's GEMM)": products,
+        "quantize passes": spans.get(W8A8_SPANS[0], 0.0),
+        "dequantize passes": spans.get(W8A8_SPANS[1], 0.0) - products,
+        "port attention kernel": named(("attention_sm90", "flash_attention")),
+        "bf16 cuBLAS": named(("xmma", "cutlass", "nvjet", "gemm", "sm90_"),
+                             INT8_GEMM_NAMES + ("attention",)),
+    }
+    split["the rest (LayerNorms, LayerScale adds, SwiGLU, casts, patch embed)"] = (
+        total - sum(split.values()))
+    log("profile", f"{what}: device busy {total:.2f} ms of {wall:.2f} ms wall (profiled), "
+        f"{sum(e.count for e in rows)} kernel launches ({name})")
+    if len(spans) < 2 or products == 0:
+        log("profile", f"the annotations' device spans ({spans}) or the int8 GEMM's kernels were "
+            "not seen: the split below is not measured; the kernels follow")
+    for group, ms in split.items():
+        log("profile", f"{ms:9.3f} ms ({100 * ms / total:4.1f} %)  {group}")
+    for e in rows[:12]:
+        log("profile", f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x  {e.key[:100]}")
 
 
 def dino_variants_phase(dev: torch.device, backbone, files, default_feats,
@@ -2536,6 +3084,7 @@ def main() -> int:
     train_reference_phase(dev)
     unet3d_reference_phase(dev)
     sam_reference_phase(dev)
+    w8a8_reference_phase(dev)
     sam2_reference_phase(dev)
     with tempfile.TemporaryDirectory(prefix="cryovit_smoke_") as tmp:
         serving = serving_phase(dev, Path(tmp))

@@ -4,9 +4,22 @@ The verbs and flags follow the JAX package's ``cryovit``: ``features``
 (DINOv2 extraction, and SAM2 pyramids with ``--use-sam``), ``train``
 (CryoVIT on DINOv2 features, or ``--model unet3d`` / ``--model sam2`` on
 raw voxels; ``--model medsam`` is refused up front, its Hiera-T hitting
-ROADMAP C2), ``evaluate`` (a ``.model`` against labelled files → metrics
-CSVs) and ``infer`` (feature or voxel files → masks, SAM2 artifacts
-included, or raw tomograms → masks with ``--fused``, CryoVIT only).
+ROADMAP C2; ``--ckpt`` fine-tunes from a ``.model``, a ``weights.pt`` or
+the JAX package's ``weights.msgpack``), ``evaluate`` (a ``.model`` against
+labelled files → metrics CSVs) and ``infer`` (feature or voxel files →
+masks, SAM2 artifacts included, or raw tomograms → masks with ``--fused``,
+CryoVIT only).
+
+``--int8`` on ``features`` (with or without ``--use-sam``) and on ``infer
+--fused`` takes the opt-in w8a8 mode: the backbone's qkv and first MLP
+projections as int8 products with per-token activation and per-channel
+weight scales; ``infer --int8`` without ``--fused`` is refused, as in the
+JAX package.
+
+A ``.model`` is read in either format: the reference torch format (which
+the port writes, and the JAX package's ``--export-torch``) or the JAX
+package's own (flax msgpack weights, decoded without flax; MedSAM's is
+refused, ROADMAP C2).
 
 Every verb runs on the GPU unless ``--device cpu`` asks for the CPU (the
 port's counterpart of ``JAX_PLATFORMS=cpu``); without a GPU the default
@@ -41,6 +54,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=64, help="Slices per extraction step.")
     p.add_argument("--use-sam", action="store_true",
                    help="Extract SAM2 feature pyramids instead of DINOv2.")
+    p.add_argument("--int8", action="store_true",
+                   help="w8a8 projection products (opt-in; int8 weights and "
+                        "activations, per-channel and per-token scales).")
     p.add_argument("--random-init", action="store_true", help=argparse.SUPPRESS)
 
     p = sub.add_parser("evaluate", help="Evaluate a trained model against labels.")
@@ -62,6 +78,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--fused", action="store_true",
                    help="Run the fused DINOv2+decoder pipeline directly on raw "
                         "tomograms (CryoVIT models; no feature files needed).")
+    p.add_argument("--int8", action="store_true",
+                   help="With --fused: w8a8 backbone projections "
+                        "(see features --int8).")
     p.add_argument("--random-init", action="store_true", help=argparse.SUPPRESS)
 
     p = sub.add_parser("train", help="Train a segmentation model on annotated tomograms.")
@@ -77,7 +96,7 @@ def _parser() -> argparse.ArgumentParser:
                    choices=[m.value for m in ModelType])
     p.add_argument("--result-folder", default=None)
     p.add_argument("--ckpt", default=None,
-                   help="Fine-tune from a .model or weights.pt file.")
+                   help="Fine-tune from a .model, weights.pt or weights.msgpack file.")
     p.add_argument("--num-epochs", type=int, default=50)
     p.add_argument("--log-training", action="store_true",
                    help="Log training curves to TensorBoard.")
@@ -111,6 +130,7 @@ def main(argv: list[str] | None = None) -> int:
         run(
             load_files_from_path(tomo_path), result,
             batch_size=args.batch_size, random_init=args.random_init, device=args.device,
+            quant_int8=args.int8,
         )
         return 0
 
@@ -168,6 +188,7 @@ def main(argv: list[str] | None = None) -> int:
         fused=args.fused,
         random_init=args.random_init,
         device=args.device,
+        quant_int8=args.int8,
     )
     print(f"wrote {len(written)} segmentations")
     return 0

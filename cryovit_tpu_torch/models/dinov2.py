@@ -26,6 +26,10 @@ Port of ``cryovit_tpu/models/dinov2.py``. The giant variant: patch 14, embed
 - ``fused_ln`` gives the blocks the JAX package's deferred-residual carry
   ``(x, pending)``: every residual add + LayerScale + LayerNorm pair is one
   ``ops/fused_norm.py:residual_layernorm`` call, two per block.
+- ``quant_int8`` (the opt-in w8a8 mode, :meth:`DinoV2.quantize_int8`)
+  computes the pair path's qkv projection and every block's w12 as int8
+  products (``ops/quant.py``); the output projection, w3 and the head-major
+  branch's qkv stay in the compute dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from torch import nn
 from cryovit_tpu_torch import require_bf16_on_cuda
 from cryovit_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bhnd
 from cryovit_tpu_torch.ops.fused_norm import residual_layernorm
+from cryovit_tpu_torch.ops.quant import int8_linear, quantize_weight
 from cryovit_tpu_torch.ops.resize import _cubic_kernel
 
 __all__ = [
@@ -141,7 +146,12 @@ class Attention(nn.Module):
     ``ops/flash_attention.py:flash_attention``) computes it from column
     views of the qkv projection and the (3, C) biases, as the JAX
     ``Attention.pair_attention_fn`` does; e.g.
-    ``partial(flash_attention, quant="qkpv")`` for the int8 internals."""
+    ``partial(flash_attention, quant="qkpv")`` for the int8 internals.
+
+    With int8 qkv weights (:meth:`quantize_int8`, the w8a8 mode) the pair
+    path's projection is one int8 product; the kernel still takes the
+    softmax scale (JAX folds it into the q third before quantizing, which
+    differs by one bf16 rounding of the q weights)."""
 
     def __init__(self, dim: int, num_heads: int, pair_heads: bool = True,
                  pair_attention_fn=flash_attention):
@@ -151,6 +161,13 @@ class Attention(nn.Module):
         self.pair_attention_fn = pair_attention_fn
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        self.register_buffer("qkv_int8", None, persistent=False)
+        self.register_buffer("qkv_int8_scale", None, persistent=False)
+
+    def quantize_int8(self) -> None:
+        """Quantize the qkv weight, in its compute dtype, per output channel
+        (the pair path's w8a8 projection; JAX casts before it quantizes)."""
+        self.qkv_int8, self.qkv_int8_scale = quantize_weight(self.qkv.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
@@ -165,7 +182,10 @@ class Attention(nn.Module):
             return F.linear(out.transpose(1, 2).reshape(b, n, c), self.proj.weight, self.proj.bias)
         # one (B·N, C)·(C, 3C) product in its natural layout; q, k and v are
         # column views of it, and their biases are added inside the kernel
-        qkv = F.linear(x, self.qkv.weight)
+        if self.qkv_int8 is not None:
+            qkv = int8_linear(x, self.qkv_int8, self.qkv_int8_scale, None, self.qkv.weight.dtype)
+        else:
+            qkv = F.linear(x, self.qkv.weight)
         out = self.pair_attention_fn(
             qkv[..., :c], qkv[..., c : 2 * c], qkv[..., 2 * c :],
             self.qkv.bias.view(3, c), self.num_heads, scale=d**-0.5,
@@ -174,15 +194,29 @@ class Attention(nn.Module):
 
 
 class SwiGLUFFN(nn.Module):
-    """``w3(silu(x1) · x2)`` with ``x1, x2 = split(w12 x)``."""
+    """``w3(silu(x1) · x2)`` with ``x1, x2 = split(w12 x)``; w12 an int8
+    product once :meth:`quantize_int8` has run (w3 stays in the compute
+    dtype, as in the JAX package)."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.w12 = nn.Linear(dim, 2 * hidden)
         self.w3 = nn.Linear(hidden, dim)
+        self.register_buffer("w12_int8", None, persistent=False)
+        self.register_buffer("w12_int8_scale", None, persistent=False)
+
+    def quantize_int8(self, weight: torch.Tensor) -> None:
+        """Quantize ``weight``, w12's values before the cast to the compute
+        dtype (JAX quantizes the parameter as stored), per output channel."""
+        self.w12_int8, self.w12_int8_scale = quantize_weight(weight.to(self.w12.weight.device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        w12 = self.w12
+        if self.w12_int8 is not None:
+            x12 = int8_linear(x, self.w12_int8, self.w12_int8_scale, w12.bias, w12.weight.dtype)
+        else:
+            x12 = w12(x)
+        x1, x2 = x12.chunk(2, dim=-1)
         return self.w3(F.silu(x1) * x2)
 
 
@@ -281,6 +315,17 @@ class DinoV2(nn.Module):
         )
         self.norm = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
 
+    def quantize_int8(self, state_dict: dict[str, torch.Tensor]) -> None:
+        """The w8a8 mode: every block's w12 quantized from its value in
+        ``state_dict`` (before the cast to the compute dtype) and, on the
+        pair path, its qkv from the compute-dtype weight, per output channel
+        into non-persistent buffers, once: the values of the JAX package's
+        on-the-fly quantization, bit for bit. The state dict is unchanged."""
+        for i, blk in enumerate(self.blocks):
+            blk.mlp.quantize_int8(torch.as_tensor(state_dict[f"blocks.{i}.mlp.w12.weight"]))
+            if blk.attn.pair_heads:
+                blk.attn.quantize_int8()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b, h, w = x.shape
@@ -317,6 +362,7 @@ def make_dinov2(
     pair_heads: bool | None = None,
     fused_ln: bool | None = None,
     residual_dtype: torch.dtype | None = None,
+    quant_int8: bool = False,
 ) -> DinoV2:
     """Build the extractor from a port state dict (torch hub names, patch
     embed folded to one channel), on ``device`` in ``dtype``, for inference.
@@ -328,7 +374,10 @@ def make_dinov2(
       false takes the head-major branch and ``flash_attention_bhnd``;
     - ``fused_ln`` (default false): the deferred-residual blocks with two
       ``residual_layernorm`` calls each;
-    - ``residual_dtype`` (default: ``dtype``): the residual stream's dtype.
+    - ``residual_dtype`` (default: ``dtype``): the residual stream's dtype;
+    - ``quant_int8`` (default false): the opt-in w8a8 mode
+      (:meth:`DinoV2.quantize_int8`), the pair path's qkv and every w12 as
+      int8 products.
 
     The module is built on the meta device and takes the state dict's
     tensors as its parameters (:func:`assign_weights`), so the giant model
@@ -345,7 +394,10 @@ def make_dinov2(
     with torch.device("meta"):
         model = DinoV2(cfg, pair_heads=pair_heads, fused_ln=bool(fused_ln),
                        residual_dtype=residual_dtype)
-    return assign_weights(model, state_dict, device, dtype)
+    model = assign_weights(model, state_dict, device, dtype)
+    if quant_int8:
+        model.quantize_int8(state_dict)
+    return model
 
 
 def assign_weights(

@@ -147,6 +147,7 @@ def make_image_encoder(
     cfg: SAM2Config | None = None,
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.bfloat16,
+    quant_int8: bool = False,
 ) -> ImageEncoder:
     """Build the encoder from a port state dict (published names, without
     the ``image_encoder.`` prefix) on ``device`` for inference: linear and
@@ -154,7 +155,9 @@ def make_image_encoder(
     in f32. The attention kernels' folded qkv copies are made from the f32
     weights (``Hiera.fold_kernel_scales``) before the cast. The patch
     embed's input channels follow the state dict (1 once folded, 3 as
-    published)."""
+    published). ``quant_int8`` takes the opt-in w8a8 mode
+    (``Hiera.quantize_int8``), its weights quantized from the f32 values;
+    the FPN neck stays in ``dtype``, as in the JAX package."""
     in_chans = state_dict["trunk.patch_embed.proj.weight"].shape[1]
     with torch.device("meta"):
         model = ImageEncoder(cfg, in_chans)
@@ -168,4 +171,7 @@ def make_image_encoder(
     for module in model.modules():  # LayerNorms and position embeddings stay f32
         if isinstance(module, (nn.Linear, nn.Conv2d, MultiScaleAttention)):
             module.to(dtype)
+    if quant_int8:  # after the cast, which would round the f32 scales
+        model.trunk.quantize_int8({k[len("trunk."):]: v for k, v in sd.items()
+                                   if k.startswith("trunk.")})
     return model.eval().requires_grad_(False)

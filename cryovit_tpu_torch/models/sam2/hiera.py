@@ -26,6 +26,13 @@ window embedding, as in the published ``hieradet``.
   into its q third. :meth:`Hiera.fold_kernel_scales` stores that copy; called
   on f32 weights before the cast to bf16 (as ``make_image_encoder`` does),
   it rounds the folded weights once, as the JAX package does.
+- The opt-in w8a8 mode (:meth:`Hiera.quantize_int8`) computes exactly the
+  projections that the JAX package's ``_Dense`` quantizes as int8 products
+  (``ops/quant.py``): the qkv of every block that does not take the global
+  attention gate and ``mlp.layers.0`` of every block that does not take the
+  fused window-block gate. The fused blocks, the global blocks' qkv,
+  ``attn.proj``, ``mlp.layers.1`` and the q-pool shortcut stay in the
+  compute dtype.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cryovit_tpu_torch.models.sam2.config import HieraConfig
+from cryovit_tpu_torch.ops.quant import int8_linear, quantize_weight
 from cryovit_tpu_torch.ops.resize import bicubic_resize_matrix
 from cryovit_tpu_torch.ops.window_attention import (
     fold_q_scale,
@@ -108,6 +116,9 @@ class MultiScaleAttention(nn.Module):
         # the qkv projection as the kernels take it (fold_kernel_scale)
         self.register_buffer("kernel_qkv_weight", None, persistent=False)
         self.register_buffer("kernel_qkv_bias", None, persistent=False)
+        # the w8a8 mode's int8 qkv weight and per-output-channel scales
+        self.register_buffer("qkv_int8", None, persistent=False)
+        self.register_buffer("qkv_int8_scale", None, persistent=False)
 
     def fold_kernel_scale(self) -> None:
         """Store the qkv projection with scale·log2(e) folded into its q
@@ -147,7 +158,12 @@ class MultiScaleAttention(nn.Module):
         # the JAX package's per-head lane slices (bf16) and its head-major
         # einsums (f32, or q pooling) are one computation in two TPU
         # layouts; here it is one batched product over heads
-        qkv = F.linear(x, self.qkv.weight, self.qkv.bias).reshape(b, n, 3, heads, d)
+        if self.qkv_int8 is not None:
+            qkv = int8_linear(x, self.qkv_int8, self.qkv_int8_scale, self.qkv.bias,
+                              self.qkv.weight.dtype)
+        else:
+            qkv = F.linear(x, self.qkv.weight, self.qkv.bias)
+        qkv = qkv.reshape(b, n, 3, heads, d)
         q, k, v = qkv.unbind(2)
         if self.q_pool:
             q = _max_pool2(q.reshape(b, h, w, c))
@@ -159,14 +175,22 @@ class MultiScaleAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """sam2's two-layer ``MLP`` (``layers.0``, ``layers.1``) with exact GELU."""
+    """sam2's two-layer ``MLP`` (``layers.0``, ``layers.1``) with exact GELU;
+    ``layers.0`` an int8 product in the w8a8 mode (``fc1_int8``)."""
 
     def __init__(self, dim: int, hidden: int, dim_out: int):
         super().__init__()
         self.layers = nn.ModuleList([nn.Linear(dim, hidden), nn.Linear(hidden, dim_out)])
+        self.register_buffer("fc1_int8", None, persistent=False)
+        self.register_buffer("fc1_int8_scale", None, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layers[1](F.gelu(self.layers[0](x)))
+        fc1 = self.layers[0]
+        if self.fc1_int8 is not None:
+            h = int8_linear(x, self.fc1_int8, self.fc1_int8_scale, fc1.bias, fc1.weight.dtype)
+        else:
+            h = fc1(x)
+        return self.layers[1](F.gelu(h))
 
 
 class MultiScaleBlock(nn.Module):
@@ -324,6 +348,21 @@ class Hiera(nn.Module):
         to the compute dtype, so the folded weights round once."""
         for blk in self.blocks:
             blk.attn.fold_kernel_scale()
+
+    def quantize_int8(self, weights: dict[str, torch.Tensor]) -> None:
+        """The w8a8 mode: every block's ``attn.qkv`` and ``mlp.layers.0``
+        weight quantized per output channel, once, into non-persistent
+        buffers (the counterpart of the JAX package's
+        ``run/sam_features.py:prequantize_trunk_int8``). ``weights`` maps the
+        trunk's parameter names to their values before the cast to the
+        compute dtype (JAX quantizes the parameters as stored). The blocks
+        that take a kernel gate leave theirs unused, as JAX's do."""
+        for i, blk in enumerate(self.blocks):
+            attn, mlp = blk.attn, blk.mlp
+            attn.qkv_int8, attn.qkv_int8_scale = quantize_weight(
+                weights[f"blocks.{i}.attn.qkv.weight"].to(attn.qkv.weight.device))
+            mlp.fc1_int8, mlp.fc1_int8_scale = quantize_weight(
+                weights[f"blocks.{i}.mlp.layers.0.weight"].to(mlp.layers[0].weight.device))
 
     def position_embedding(self, gh: int, gw: int) -> torch.Tensor:
         """``(gh, gw, C)`` f32: the background embedding resized bicubically

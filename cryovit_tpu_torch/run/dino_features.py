@@ -115,14 +115,17 @@ def load_extractor(
     cfg: DinoV2Config | None = None,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
+    quant_int8: bool = False,
 ) -> DinoV2:
     """The backbone, built from :func:`load_dinov2_variables`, on ``device``
-    in ``dtype`` (default: bf16 on a GPU, f32 on the CPU). The default device
-    is the GPU: without one, :func:`resolve_device` raises, and the CPU is
-    taken only when named (``device="cpu"``)."""
+    in ``dtype`` (default: bf16 on a GPU, f32 on the CPU); ``quant_int8``
+    takes the opt-in w8a8 mode (``make_dinov2``). The default device is the
+    GPU: without one, :func:`resolve_device` raises, and the CPU is taken
+    only when named (``device="cpu"``)."""
     device = resolve_device(device)
     sd, _ = load_dinov2_variables(model_dir, random_init, cfg, device)
-    return make_dinov2(sd, cfg, device=device, dtype=dtype or compute_dtype(device))
+    return make_dinov2(sd, cfg, device=device, dtype=dtype or compute_dtype(device),
+                       quant_int8=quant_int8)
 
 
 class DinoExtractor:
@@ -205,12 +208,14 @@ def run_dino(
     model_dir: str | Path | None = None,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
+    quant_int8: bool = False,
 ) -> list[Path]:
     """Extract features for explicit tomogram files →
-    ``result_dir/<stem>.hdf`` (reference ``run_dino:210-298``)."""
+    ``result_dir/<stem>.hdf`` (reference ``run_dino:210-298``);
+    ``quant_int8`` takes the opt-in w8a8 mode."""
     if not train_data:
         raise ValueError("No valid tomogram files found.")
-    model = load_extractor(model_dir, random_init, dino_cfg, device, dtype)
+    model = load_extractor(model_dir, random_init, dino_cfg, device, dtype, quant_int8)
     extractor = DinoExtractor(model, batch_size=batch_size)
     written = []
     for path, volume, features in extract_features(train_data, extractor):

@@ -51,13 +51,14 @@ def load_fused(
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
     slice_batch: int = 64,
+    quant_int8: bool = False,
 ) -> tuple[FusedDinoCryoVIT, str]:
     """The fused segmenter for a ``.model`` artifact and its label key: the
     decoder from the artifact, the backbone from ``model_dir`` (or random
     weights), both on ``device`` in ``dtype`` (default: bf16 on a GPU, f32
-    on the CPU)."""
+    on the CPU); ``quant_int8`` gives the backbone the opt-in w8a8 mode."""
     device = resolve_device(device)
-    backbone = load_extractor(model_dir, random_init, dino_cfg, device, dtype)
+    backbone = load_extractor(model_dir, random_init, dino_cfg, device, dtype, quant_int8)
     decoder, model_type, _, label_key = load_model(
         model_path, device=device, dtype=backbone.pos_embed.dtype
     )
@@ -141,18 +142,25 @@ def run_inference(
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
     slice_batch: int = 64,
+    quant_int8: bool = False,
 ) -> list[Path]:
     """Segment tomograms with a ``.model`` artifact → thresholded uint8
     HDF5s under ``result_dir`` (reference ``run/infer_model.py:18-85``).
 
     ``fused=True`` runs the backbone on raw tomograms (CryoVIT only; the
     backbone options ``model_dir``, ``random_init``, ``dino_cfg``,
-    ``slice_batch`` and ``dtype`` apply to it). Otherwise each file holds
-    the model's input (``dino_features`` or ``data``) and the model runs in
-    the device's dtype (bf16 on a GPU, f32 on the CPU)."""
+    ``slice_batch``, ``dtype`` and ``quant_int8``, the w8a8 mode, apply to
+    it). Otherwise each file holds the model's input (``dino_features`` or
+    ``data``) and the model runs in the device's dtype (bf16 on a GPU, f32
+    on the CPU); ``quant_int8`` then raises, as in the JAX package."""
     if not fused:
+        if quant_int8:
+            raise ValueError(
+                "quant_int8 applies to the DINOv2 backbone and requires "
+                "fused=True (file-based inference reads precomputed features)"
+            )
         return _run_file_inference(data, model_path, Path(result_dir), threshold, device)
     segmenter, label_key = load_fused(
-        model_path, model_dir, random_init, dino_cfg, device, dtype, slice_batch
+        model_path, model_dir, random_init, dino_cfg, device, dtype, slice_batch, quant_int8
     )
     return _run_fused_inference(data, segmenter, label_key, Path(result_dir), threshold)

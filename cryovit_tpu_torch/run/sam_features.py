@@ -86,18 +86,24 @@ def load_sam_encoder(
     cfg: SAM2Config | None = None,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
+    quant_int8: bool = False,
 ) -> ImageEncoder:
     """The encoder, built from :func:`make_sam_encoder_state`, on ``device``
     (default: the GPU if there is one) computing in ``dtype`` (default: bf16
-    on a GPU, f32 on the CPU)."""
+    on a GPU, f32 on the CPU). ``quant_int8`` takes the opt-in w8a8 mode, its
+    weights quantized once here (``make_image_encoder``: the counterpart of
+    the JAX ``SamFeatureExtractor``'s ``prequantize_trunk_int8``)."""
     device = resolve_device(device)
     sd = make_sam_encoder_state(model_dir, cfg, random_init, device)
-    return make_image_encoder(sd, cfg, device=device, dtype=dtype or compute_dtype(device))
+    return make_image_encoder(sd, cfg, device=device, dtype=dtype or compute_dtype(device),
+                              quant_int8=quant_int8)
 
 
 class SamFeatureExtractor:
     """Slice-batch pyramid extractor: ``(D, H, W)`` f32 slices → per level
-    ``(D, C, h, w)`` fp16 ``backbone_fpn`` and ``vision_pos_enc``."""
+    ``(D, C, h, w)`` fp16 ``backbone_fpn`` and ``vision_pos_enc``. The
+    encoder carries its mode: built with ``quant_int8`` (``load_sam_encoder``)
+    it runs the w8a8 projections."""
 
     def __init__(self, encoder: ImageEncoder, batch_size: int = 64) -> None:
         self.encoder = encoder
@@ -154,12 +160,13 @@ def run_sam(
     model_dir: str | Path | None = None,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
+    quant_int8: bool = False,
 ) -> list[Path]:
     """Extract SAM2 pyramids for explicit tomogram files →
-    ``result_dir/<stem>.hdf``."""
+    ``result_dir/<stem>.hdf``; ``quant_int8`` takes the opt-in w8a8 mode."""
     if not train_data:
         raise ValueError("No valid tomogram files found.")
-    encoder = load_sam_encoder(model_dir, random_init, sam_cfg, device, dtype)
+    encoder = load_sam_encoder(model_dir, random_init, sam_cfg, device, dtype, quant_int8)
     extractor = SamFeatureExtractor(encoder, batch_size=batch_size)
     written = []
     for path, volume, feats in extract_sam_features(train_data, extractor):

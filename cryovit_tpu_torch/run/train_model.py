@@ -29,7 +29,7 @@ from cryovit_tpu_torch.data import DataLoader, FileDataModule, FileDataset
 from cryovit_tpu_torch.models import SAM2, BaseModel, CryoVIT, UNet3D
 from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
 from cryovit_tpu_torch.run.dino_features import default_model_dir
-from cryovit_tpu_torch.train.checkpoint import load_model, save_model
+from cryovit_tpu_torch.train.checkpoint import load_jax_weights, load_model, save_model
 from cryovit_tpu_torch.train.loop import Trainer
 from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
 from cryovit_tpu_torch.types import ModelType
@@ -112,13 +112,19 @@ def build_trainer(
     )
 
 
-def _initial_weights(ckpt_path: Path) -> dict[str, torch.Tensor]:
-    """A reference-format ``.model`` artifact's weights, or a torch state
-    dict (``weights.pt``) with the reference's names."""
+def _initial_weights(ckpt_path: Path, model_type: ModelType | str) -> dict[str, torch.Tensor]:
+    """A ``.model`` artifact's weights (either format), a torch state dict
+    (``weights.pt``, a zip container) with the reference's names, or else
+    the JAX package's ``weights.msgpack`` of a ``model_type`` model, as the
+    JAX ``load_weights`` tells them apart."""
     if ckpt_path.suffix == ".model":
         module, *_ = load_model(ckpt_path, device="cpu")
         return module.state_dict()
-    return torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    with open(ckpt_path, "rb") as f:
+        is_torch_zip = f.read(2) == b"PK"
+    if is_torch_zip:
+        return torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    return load_jax_weights(ckpt_path, model_type)
 
 
 def _sam_pretrained(model: BaseModel, cfg: TrainConfig) -> dict | None:
@@ -151,7 +157,8 @@ def run_training(
     """Train on explicit file paths and write ``<result_dir>/<name>.model``
     (reference ``run/train_model.py:24-153``).
 
-    ``ckpt_path`` fine-tunes from a ``.model`` or ``weights.pt``. The port's
+    ``ckpt_path`` fine-tunes from a ``.model`` (either format), a
+    ``weights.pt`` or the JAX package's ``weights.msgpack``. The port's
     ``.model`` already is the reference torch format, so ``export_torch``
     writes the same artifact again as ``<name>.torch.model``, the file name
     the JAX package's ``--export-torch`` gives it. ``config`` overrides the
@@ -179,7 +186,7 @@ def run_training(
     )
     variables = None
     if ckpt_path is not None:
-        variables = _initial_weights(Path(ckpt_path))
+        variables = _initial_weights(Path(ckpt_path), cfg.model.model_type)
         logger.info("fine-tuning from %s", ckpt_path)
 
     trainer = build_trainer(cfg, device, result_dir, log_training)

@@ -19,8 +19,12 @@ state dict (``model.*`` and ``prompt_predictor.*``, the names
 loaded strictly into the port's ``SAM2Model``; the architecture (the test
 config or the published one, the LoRA rank) is read off the tensors' shapes.
 
-The JAX package's own ``.model`` (flax msgpack weights inside the pickle)
-needs flax to decode and is refused with a clear error.
+:func:`load_model` also reads the JAX package's own ``.model`` (its
+``cryovit_tpu.train.checkpoint.SavedModel``, whose weights are flax msgpack
+bytes: decoded by ``train/msgpack.py`` without flax, then mapped onto the
+reference names by the ``convert.py`` bridge of the model type), and
+:func:`load_jax_weights` its ``weights.msgpack`` for a named model type.
+MedSAM is refused either way (ROADMAP C2).
 """
 
 from __future__ import annotations
@@ -35,16 +39,19 @@ from functools import partial
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
+from cryovit_tpu_torch.convert import cryovit_from_jax, sam2_from_jax, unet3d_from_jax
 from cryovit_tpu_torch.models.cryovit import CryoVIT, make_cryovit
 from cryovit_tpu_torch.models.sam2.config import HieraConfig, SAM2Config
 from cryovit_tpu_torch.models.sam2.family import make_sam2
 from cryovit_tpu_torch.models.sam2.model import SAM2Model
 from cryovit_tpu_torch.models.unet3d import UNet3D, make_unet3d
+from cryovit_tpu_torch.train.msgpack import msgpack_restore
 from cryovit_tpu_torch.types import ModelType
 
-__all__ = ["load_model", "reference_model_cfg", "save_model"]
+__all__ = ["load_jax_weights", "load_model", "reference_model_cfg", "save_model"]
 
 
 def _sam2_config_of(state_dict: dict, model_type: ModelType) -> tuple[SAM2Config, int]:
@@ -74,6 +81,29 @@ _MODULES = {
     ModelType.SAM2: (SAM2Model, partial(_make_sam2, model_type=ModelType.SAM2)),
     ModelType.MEDSAM: (SAM2Model, partial(_make_sam2, model_type=ModelType.MEDSAM)),
 }
+
+
+# the JAX package's variables → the reference state dict, by model type
+_JAX_BRIDGES = {
+    ModelType.CRYOVIT: cryovit_from_jax,
+    ModelType.UNET3D: unet3d_from_jax,
+    ModelType.SAM2: sam2_from_jax,
+    ModelType.MEDSAM: sam2_from_jax,  # then refused by the trunk's window rule (C2)
+}
+
+
+def _from_jax(variables: dict, model_type: ModelType) -> dict[str, torch.Tensor]:
+    """The JAX package's variables tree for ``model_type`` → the reference
+    state dict, as torch tensors."""
+    sd = _JAX_BRIDGES[model_type](variables)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def load_jax_weights(path: str | Path, model_type: ModelType | str) -> dict[str, torch.Tensor]:
+    """A JAX ``weights.msgpack`` (``cryovit_tpu.train.checkpoint.save_weights``:
+    the flax msgpack of a model's variables) as the reference state dict of
+    ``model_type``."""
+    return _from_jax(msgpack_restore(Path(path).read_bytes()), ModelType(model_type))
 
 
 class _Stub:
@@ -119,9 +149,12 @@ _SAFE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int", "float", "
 
 
 class _ReferenceUnpickler(pickle.Unpickler):
-    """Unpickle ``.model`` files without the reference package. The
-    reference's ``SavedModel``/``ModelType`` map to local stand-ins, config
-    classes to inert stubs; anything else outside the safe set is refused."""
+    """Unpickle ``.model`` files without the reference package or the JAX
+    one. ``SavedModel`` and ``ModelType`` (the reference's ``cryovit.utils``
+    / ``cryovit.types`` ones and the JAX package's
+    ``cryovit_tpu.train.checkpoint`` / ``cryovit_tpu.types`` ones) map to
+    local stand-ins by name and are never imported, config classes to inert
+    stubs; anything else outside the safe set is refused."""
 
     def find_class(self, module: str, name: str) -> Any:
         root = module.split(".")[0]
@@ -163,13 +196,10 @@ def load_model(
     model_type = raw.model_type
     if not isinstance(model_type, ModelType):
         model_type = ModelType(str(model_type))
-    if isinstance(raw.weights, (bytes, bytearray)):
-        raise ValueError(
-            f"{model_path} holds flax msgpack weights (cryovit_tpu's own .model "
-            "format), which cannot be read without flax; export it with "
-            "cryovit_tpu.train.torch_export.save_torch_model first."
-        )
-    sd = {str(k): v for k, v in dict(raw.weights).items()}
+    if isinstance(raw.weights, (bytes, bytearray)):  # the JAX package's own format
+        sd = _from_jax(msgpack_restore(raw.weights), model_type)
+    else:
+        sd = {str(k): v for k, v in dict(raw.weights).items()}
     model = _MODULES[model_type][1](sd, device=device, dtype=dtype)
     return model, model_type, str(raw.name), str(raw.label_key)
 

@@ -682,3 +682,53 @@ def test_sam2_hiera_l_train_step_launches_rows_9_to_11(cuda):
     assert counts == {"window_block_attention": 64, "window_block_mlp": 64, "window_attention": 6}
     assert torch.isfinite(probs).all() and 0 <= probs.min() and probs.max() <= 1
     assert any(n.startswith("prompt_predictor.") for n in grads)
+
+
+@pytest.mark.parametrize("m,k,n,with_bias", [(65, 1536, 4608, False), (4096, 576, 2304, True),
+                                             (17, 72, 216, True)])
+def test_w8a8_product_matches_the_cpu(cuda, m, k, n, with_bias):
+    """``ops/quant.py:int8_matmul`` (cuBLASLt's int8 path through
+    ``torch._int_mm``, then the f32 dequantization and the bf16 bias) on the
+    GPU against the same call on the CPU, bit for bit: the int32 products
+    are exact and the epilogue rounds the same way on both."""
+    from cryovit_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(m + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    sx, sw = torch.rand(m, 1, generator=g) * 0.01, torch.rand(n, generator=g) * 0.01
+    bias = torch.randn(n, generator=g) if with_bias else None
+    want = quant.int8_matmul(xq, sx, wq, sw, torch.bfloat16, bias)
+    got = quant.int8_matmul(*(t.to(cuda) for t in (xq, sx, wq, sw)), torch.bfloat16,
+                            None if bias is None else bias.to(cuda))
+    assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), want)
+
+
+def test_w8a8_product_refuses_what_the_card_cannot_take(cuda):
+    """16 rows, or K or N not a multiple of 8, raise on the GPU (no CPU
+    fallback)."""
+    from cryovit_tpu_torch.ops import quant
+
+    for m, k, n in ((16, 64, 64), (32, 60, 64), (32, 64, 60)):
+        xq = torch.zeros(m, k, dtype=torch.int8, device=cuda)
+        wq = torch.zeros(n, k, dtype=torch.int8, device=cuda)
+        with pytest.raises(ValueError, match="int8_matmul on CUDA"):
+            quant.int8_matmul(xq, torch.ones(m, 1, device=cuda), wq, torch.ones(n, device=cuda),
+                              torch.bfloat16)
+
+
+def test_w8a8_models_match_the_cpu(cuda):
+    """The w8a8 mode, GPU bf16 against CPU f32 (both int8): ``chip_smoke.py``'s
+    w8a8 reference, run as the smoke script runs it. The DINOv2 pair path
+    (features and fused probabilities) and the Hiera at widths 72 and 96
+    (both kernel gates open) within the serving reference's 2e-2 or twice
+    the CPU's bf16 reading; the launches and int8 products the gates give;
+    the two planted faults read above a limit."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.w8a8_reference_phase(cuda)  # raises on any failed check

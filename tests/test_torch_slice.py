@@ -161,13 +161,18 @@ def test_save_model_reads_back_in_jax(tmp_path):
 
 
 def test_load_model_refuses_flax_msgpack_and_foreign_globals(tmp_path, slice_env):
-    """The JAX package's own ``.model`` (flax msgpack weights) is refused
-    with a clear error, and the restricted unpickler refuses globals outside
-    its safe set."""
+    """The JAX package's own ``.model`` (flax msgpack weights) now loads,
+    its decoder equal to the one its weights bridge to, and the restricted
+    unpickler refuses globals outside its safe set."""
     msgpack_path = tmp_path / "flax.model"
     jax_save_model("x", "mito", _jax_family(), slice_env["dec_vars"], {}, msgpack_path)
-    with pytest.raises(ValueError, match="flax"):
-        load_model(msgpack_path)
+    decoder, model_type, name, label_key = load_model(msgpack_path)
+    assert (model_type.value, name, label_key) == ("cryovit", "x", "mito")
+    want = cryovit_from_jax(slice_env["dec_vars"])
+    got = decoder.state_dict()
+    assert set(got) == set(want)
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
 
     class Evil:
         def __reduce__(self):
