@@ -108,7 +108,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    and F1 recomputed in numpy from the returned predictions) and
    ``Trainer.predict`` on the stored fp16 features against the fused
    path's probabilities; device ms of one test and one predict step.
-9. SAM serving main path — SAM2 feature extraction (``cryovit-torch features
+9. experiment mode — ``python -m cryovit_tpu_torch.training.*`` through
+   ``sweep_main`` on a synthetic data tree (AD and Young, 3 blob tomograms
+   of 64×512×512 each, ``csv/splits.csv``): the ``dino_features`` sweep
+   (full-width ViT-g/14, seeded weights) writes the training-ready files,
+   its features bit for bit ``DinoExtractor.extract``'s; the
+   ``sam_features`` sweep (Hiera-L, seeded, ``sample=Young``) writes
+   Young's pyramids; ``train_model`` (``model=cryovit datamodule=single
+   datamodule.sample=AD datamodule.split_id=1 datamodule.test_sample=Young
+   trainer.max_epochs=2 logger={}``, the full-width decoder in bf16) writes
+   ``weights.pt`` under ``<name>/AD/split_1`` with the composed recipe in
+   its trainer (lr 1e-4, SWA from 0.8, 2 epochs); ``eval_model`` on the
+   same overrides reads it back and writes one metrics row per Young
+   tomogram. Each stage's launches exactly as its steps give them, its
+   wall time and peak memory. Without h5py only the HDF5 file layer is
+   replaced, in memory (``_HDF5Store``; the phase names the functions).
+10. SAM serving main path — SAM2 feature extraction (``cryovit-torch features
    --use-sam``'s extractor) on a synthetic 64×512×512 tomogram at Hiera-L
    full width, slice batch 64: the pyramids' shapes and values, each Hiera
    kernel's launches against the counts its gates give, slices/s with host
@@ -122,7 +137,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    32/32/3 launches and 29 int8 products a batch, the pyramids against the
    bf16 ones per level, slices/s, peak memory, device ms of one encoder
    batch beside the bf16 encoder's.
-10. UNet3D training main path — ``train --model unet3d`` one step below its
+11. UNet3D training main path — ``train --model unet3d`` one step below its
    file readers: a synthetic 128×512×512 blob tomogram's raw voxels,
    ``Trainer.fit`` of the full-width U-Net (bf16 on f32 masters, AdamW lr
    3e-3, SWA) for 6 epochs, its ``.model`` reloaded and scored by
@@ -130,14 +145,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    conv3d_dm_dw), the step time (median of 5), voxels/s, epoch times, peak
    memory and a profile of one step split into the port's kernels, cuDNN,
    copies and the norm/GELU glue.
-11. SAM2 training main path — ``train --model sam2`` one step below its
+12. SAM2 training main path — ``train --model sam2`` one step below its
    file readers: a synthetic 128×512×512 blob tomogram's raw voxels,
    ``Trainer.fit`` of ``SAM2Config.large()`` (sam2.1_hiera_l at 512², LoRA
    r = α = 128) at full width, bf16 on f32 masters, AdamW lr 5e-5 and
-   prompt_lr 1e-4, batch 1, cond slices [1, 1] / [True, False], for
-   SAM2_EPOCHS epochs, the frozen Hiera-L run live on every step; the
-   ``.model`` reloaded and run by one ``Trainer.test`` and one
-   ``Trainer.predict``. One isolated step's launches (exactly 64/64/6 of
+   prompt_lr 1e-4, gradients clipped at norm 1, batch 1, cond slices
+   [1, 1] / [True, False], for SAM2_EPOCHS epochs, the frozen Hiera-L
+   run live on every step; the ``.model`` reloaded and run by one
+   ``Trainer.test`` and one ``Trainer.predict``. One isolated step's launches (exactly 64/64/6 of
    rows 9/10/11: two 64-slice encoder chunks), the step time (median of
    5), the step split into encoder forward / heads forward / heads backward
    / optimizer (device and host ms), profiles of the encoder forward and of
@@ -194,6 +209,11 @@ UNET_CONV_CALLS = [("forward", 1, 16), ("forward", 16, 16), ("forward", 16, 16),
                    ("input gradient", 16, 16), ("input gradient", 16, 16)]
 UNET_DW_CALLS = [(1, 16), (16, 16), (16, 16)]
 UNET_EPOCHS = 6
+# the experiment mode's phase: two samples of EXP_TOMOGRAMS blob tomograms of
+# EXP_DEPTH x SIDE² each, the CryoVIT experiment trained EXP_EPOCHS epochs on
+# AD (split 1 held out) and tested on Young
+EXP_SAMPLES = ("AD", "Young")
+EXP_TOMOGRAMS, EXP_DEPTH, EXP_EPOCHS = 3, 64, 2
 KERNELS = {
     "flash_attention": ("cryovit_tpu_torch/csrc/attention_sm90.cu",
                         "cryovit_tpu/ops/flash_attention.py:226"),
@@ -230,6 +250,9 @@ TRAIN_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 12, "convt2x_dm
 UNET_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": len(UNET_CONV_CALLS),
                       "conv3d_dm_dw": len(UNET_DW_CALLS)}
 UNET_STEP_NONZERO = {k: n for k, n in UNET_STEP_LAUNCHES.items() if n}
+# one forward pass of the decoder (a validation or test step): its six tail
+# convs and two ConvTransposes, as a fused pass launches them
+DECODER_FORWARD_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 6, "convt2x_dm": 2}
 # one SAM2 train step on the 128-slice crop: the frozen Hiera-L runs live in
 # two 64-slice chunks, each launching rows 9, 10, 11 as a serving batch does
 # (SAM_BATCH_LAUNCHES below); the heads have no kernel
@@ -2519,6 +2542,303 @@ def evaluation_phase(dev, workdir, model_path, feature_path, label_path, dataset
     return counts
 
 
+class _HDF5Store:
+    """The HDF5 file layer of the experiment mode, in memory and keyed by
+    path, for a machine without h5py: stand-ins for the functions that open
+    HDF5 files (the phase's own source writer ``write_hdf``, the sweeps'
+    ``_read_source`` and ``save_feature_hdf``, ``TomoDataset._read`` and
+    ``TestPredictionWriter._write``), each keeping its original's layout
+    (``data``, ``labels/<key>``, ``dino_features``,
+    ``sam_features/<key>/<level>``). Every other step runs unreplaced; the
+    files are touched on disk, where the sweeps and loaders look for them."""
+
+    REPLACED = ("cryovit_tpu_torch.io.write_hdf (the phase's source tomograms)",
+                "cryovit_tpu_torch.run.dino_features._read_source",
+                "cryovit_tpu_torch.run.dino_features.save_feature_hdf",
+                "cryovit_tpu_torch.run.sam_features.save_feature_hdf",
+                "cryovit_tpu_torch.data.datasets.TomoDataset._read",
+                "cryovit_tpu_torch.callbacks.TestPredictionWriter._write")
+
+    def __init__(self):
+        self.files: dict[Path, dict] = {}
+
+    def write_hdf(self, path, arrays):
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.touch()
+        self.files[path] = dict(arrays)
+        return path
+
+    def read(self, path, key):
+        return self.files[Path(path)][key]
+
+    def read_source(self, path):
+        out = {}
+        for key, arr in self.files[Path(path)].items():
+            parts = key.split("/")
+            if len(parts) <= 2:  # datasets and one level of groups, flattened
+                out[parts[-1]] = arr
+        return out
+
+    def save_feature_hdf(self, source, features, tomo_name, dst_dir):
+        out = {}
+        for key, arr in source.items():
+            if key == "data":
+                out["data"] = arr
+            elif key != "dino_features":
+                out[f"labels/{key}"] = arr
+        if isinstance(features, dict):
+            if "dino_features" in source:
+                out["dino_features"] = source["dino_features"]
+            for key, levels in features.items():
+                for i, level in enumerate(levels):
+                    out[f"sam_features/{key}/{i}"] = level
+        else:
+            out["dino_features"] = features
+        return self.write_hdf(Path(dst_dir) / tomo_name, out)
+
+    def patches(self):
+        import numpy as np
+
+        from cryovit_tpu_torch.callbacks import TestPredictionWriter
+        from cryovit_tpu_torch.data.datasets import TomoDataset
+        from cryovit_tpu_torch.run import dino_features, sam_features
+
+        store = self
+
+        def tomo_read(ds, tomo_path):
+            arrays = store.files[Path(tomo_path)]
+            if ds.input_key not in arrays:
+                raise KeyError(f"{tomo_path}: missing input key {ds.input_key!r}")
+            if f"labels/{ds.label_key}" not in arrays:
+                raise KeyError(f"{tomo_path}: missing label key labels/{ds.label_key!r}")
+            aux = {}
+            for key in ds.aux_keys:
+                if key == "sam_features":
+                    names = sorted({k.split("/")[1] for k in arrays if k.startswith(key + "/")})
+                    aux[key] = {n: [arrays[f"{key}/{n}/{i}"] for i in range(
+                        sum(k.startswith(f"{key}/{n}/") for k in arrays))] for n in names}
+                elif key in arrays:
+                    aux[key] = arrays[key]
+            return (np.asarray(arrays[ds.input_key]),
+                    np.asarray(arrays[f"labels/{ds.label_key}"]).astype(np.int8), aux)
+
+        def pred_write(writer, path, data, label, preds):
+            store.write_hdf(path, {"data": data, writer.label_key: label,
+                                   f"{writer.label_key}_preds": preds})
+
+        return [(dino_features, "_read_source", self.read_source),
+                (dino_features, "save_feature_hdf", self.save_feature_hdf),
+                (sam_features, "save_feature_hdf", self.save_feature_hdf),
+                (TomoDataset, "_read", tomo_read),
+                (TestPredictionWriter, "_write", pred_write)]
+
+
+@contextlib.contextmanager
+def _patched(patches):
+    """Set each ``(owner, name, value)`` for the block; restore after."""
+    saved = [(owner, name, owner.__dict__[name]) for owner, name, _ in patches]
+    try:
+        for owner, name, value in patches:
+            setattr(owner, name, value)
+        yield
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+def experiment_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
+    """The experiment mode (``python -m cryovit_tpu_torch.training.*``)
+    through ``sweep_main``, on a synthetic data tree of EXP_SAMPLES, each
+    EXP_TOMOGRAMS blob tomograms of EXP_DEPTH x SIDE² uint8 with labels, and
+    its ``csv/splits.csv`` (split_id i % 2): the ``dino_features`` sweep
+    (full-width ViT-g/14, seeded weights, ``+random_init=true``) writes the
+    training-ready files; the ``sam_features`` sweep (Hiera-L, seeded,
+    ``sample=Young``, batch 64) writes Young's pyramids to a tree of their
+    own; ``train_model`` (``model=cryovit datamodule=single
+    datamodule.sample=AD datamodule.split_id=1 datamodule.test_sample=Young
+    trainer.max_epochs=EXP_EPOCHS logger={}``: the full-width decoder in
+    bf16) and ``eval_model`` on the same overrides. Checks: each stage's
+    launches, worked out from its steps; the composed recipe in the trainer
+    (AdamW lr 1e-4 from ``model/cryovit.yaml``, SWA from 0.8, the composed
+    max_epochs); the sweep's features bit for bit ``DinoExtractor.extract``'s
+    of the same tomogram with the same weights; ``weights.pt`` under
+    ``<name>/AD/split_1`` and eval's module holding it; one metrics row per
+    Young tomogram, each metric in [0, 1]. Without h5py only the HDF5 file
+    layer is replaced (``_HDF5Store``). Wall time, peak device memory and
+    launches per stage."""
+    import csv
+    import importlib.util
+
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.config import validate_dino_config, validate_experiment_config
+    from cryovit_tpu_torch.io import write_hdf
+    from cryovit_tpu_torch.io.hdf import read_hdf
+    from cryovit_tpu_torch.run import common, dino_features, eval_model, sam_features, train_model
+    from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
+    from cryovit_tpu_torch.training import sweep_main
+
+    name = torch.cuda.get_device_name(0)
+    data_dir, exp_dir = workdir / "exp_data", workdir / "exp_results"
+    store = _HDF5Store() if importlib.util.find_spec("h5py") is None else None
+    patches = store.patches() if store is not None else []
+    if store is not None:
+        log("exp", "h5py is not installed here: the HDF5 file layer is replaced by an in-memory "
+            "store keyed by path, only these functions: " + ", ".join(_HDF5Store.REPLACED)
+            + "; the composer, validators, split records, datasets above their read, "
+            "DataLoader, Trainer, CsvWriter and weights.pt are the port's own")
+    write_source = store.write_hdf if store is not None else write_hdf
+
+    def read_back(path, key):
+        return store.read(path, key) if store is not None else read_hdf(path, key=key)[1]
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    rows, volumes = [], {}
+    for sample in EXP_SAMPLES:
+        for i in range(EXP_TOMOGRAMS):
+            vol, label = blob_tomogram(rng, EXP_DEPTH, SIDE)
+            tomo = f"blobs_{i}.hdf"
+            write_source(data_dir / "dino_features" / sample / tomo,
+                         {"data": vol, "labels/mito": label})
+            rows.append({"sample": sample, "tomo_name": tomo, "split_id": i % 2})
+            volumes[sample, tomo] = vol
+    (data_dir / "csv").mkdir(parents=True)
+    with open(data_dir / "csv" / "splits.csv", "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["sample", "tomo_name", "split_id"])
+        writer.writeheader()
+        writer.writerows(rows)
+    log("exp", f"data tree: {len(rows)} blob tomograms {EXP_DEPTH}x{SIDE}x{SIDE} uint8 with "
+        f"labels in {', '.join(EXP_SAMPLES)}, csv/splits.csv; {time.perf_counter() - t0:.1f} s")
+
+    paths = [f"paths.data_dir={data_dir}", f"paths.exp_dir={exp_dir}",
+             f"paths.model_dir={workdir / 'exp_models'}"]
+    built, tested, stages = [], [], {}
+    build_trainer = common.build_trainer
+
+    def recording_build_trainer(cfg, device=None, extra_callbacks=None):
+        trainer = build_trainer(cfg, device, extra_callbacks)
+        test = trainer.test
+
+        def recording_test(model, datamodule, module=None):
+            tested.append(module)
+            return test(model, datamodule, module)
+
+        trainer.test = recording_test
+        built.append(trainer)
+        return trainer
+
+    def stage(label, config_name, run_fn, validate_fn, overrides, want):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _patched(patches + [(common, "build_trainer", recording_build_trainer)]):
+            rc = sweep_main(config_name, run_fn, validate_fn,
+                            paths + overrides + ["--device", dev.type])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        stages[label] = counts
+        log("exp", f"{label}: {time.perf_counter() - t0:.2f} s wall, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({name}); launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        if rc != 0:
+            raise AssertionError(f"experiment phase: {label} exited {rc}")
+        want = {k: want.get(k, 0) for k in kernels.KERNELS}
+        return {f"{label}: launches { {k: n for k, n in want.items() if n} }": counts == want}
+
+    checks = {}
+    n_tomos = len(rows)
+    checks.update(stage("dino_features sweep", "dino_features", dino_features.run_trainer,
+                        validate_dino_config, ["+random_init=true"],
+                        {"flash_attention": 40 * n_tomos * -(-EXP_DEPTH // 128)}))
+    # the sweep's features against DinoExtractor's on the same weights
+    ad0 = data_dir / "tomograms" / "AD" / "blobs_0.hdf"
+    feats = read_back(ad0, "dino_features")
+    with torch.no_grad():
+        extractor = dino_features.DinoExtractor(
+            dino_features.load_extractor(random_init=True, device=dev), batch_size=128)
+        want_feats = extractor.extract(volumes["AD", "blobs_0.hdf"])
+    del extractor
+    torch.cuda.empty_cache()
+    gh = SIDE // 16
+    checks[f"sweep features (1536, {EXP_DEPTH}, {gh}, {gh}) fp16 bit for bit DinoExtractor's"] = (
+        feats.shape == (1536, EXP_DEPTH, gh, gh) and feats.dtype == np.float16
+        and np.array_equal(feats, want_feats))
+    checks["training-ready files keep data and labels"] = all(
+        np.array_equal(read_back(data_dir / "tomograms" / s / t, "data"), v)
+        for (s, t), v in volumes.items())
+    log("exp", f"sweep features AD/blobs_0: std {feats.astype(np.float32).std():.4f}; "
+        f"equal to DinoExtractor.extract's: {np.array_equal(feats, want_feats)}")
+
+    young = [r for r in rows if r["sample"] == "Young"]
+    checks.update(stage("sam_features sweep", "sam_features", sam_features.run_trainer,
+                        validate_dino_config,
+                        ["sample=Young", "+random_init=true", "batch_size=64",
+                         "paths.tomo_name=sam_tomograms"],
+                        {k: n * len(young) * -(-EXP_DEPTH // 64)
+                         for k, n in SAM_BATCH_LAUNCHES.items()}))
+    shapes = [(EXP_DEPTH, 256, SIDE // s, SIDE // s) for s in (4, 8, 16)]
+    pyramids = [[read_back(data_dir / "sam_tomograms" / "Young" / r["tomo_name"],
+                           f"sam_features/{key}/{i}") for i in range(3)]
+                for r in young for key in ("backbone_fpn", "vision_pos_enc")]
+    checks[f"Young's pyramids {shapes} fp16, finite"] = all(
+        [p.shape for p in levels] == shapes and all(p.dtype == np.float16 for p in levels)
+        and all(bool(np.isfinite(p).all()) for p in levels) for levels in pyramids)
+
+    train_rows = [r for r in rows if r["sample"] == "AD" and r["split_id"] != 1]
+    val_rows = [r for r in rows if r["sample"] == "AD" and r["split_id"] == 1]
+    steps, vals = EXP_EPOCHS * len(train_rows), EXP_EPOCHS * len(val_rows)
+    exp_ov = ["model=cryovit", "datamodule=single", "label_key=mito", "datamodule.sample=AD",
+              "datamodule.split_id=1", "datamodule.test_sample=Young"]
+    checks.update(stage("train_model", "train_model", train_model.run_trainer,
+                        validate_experiment_config,
+                        exp_ov + [f"trainer.max_epochs={EXP_EPOCHS}", "logger={}"],
+                        {k: steps * TRAIN_STEP_LAUNCHES[k] + vals * DECODER_FORWARD_LAUNCHES[k]
+                         for k in KERNELS}))
+    trainer = built[-1]
+    swa = next(c for c in trainer.callbacks if isinstance(c, StochasticWeightAveraging))
+    lr = trainer.optimizer.param_groups[0]["lr"]
+    checks["the composed recipe in the trainer: lr 1e-4, SWA from 0.8 (swa_lrs 1e-4), "
+           f"max_epochs {EXP_EPOCHS}, bf16"] = (
+        lr == 1e-4 and swa.swa_epoch_start == 0.8 and swa.swa_lrs == 1e-4
+        and trainer.max_epochs == EXP_EPOCHS and trainer.precision == "bf16"
+        and trainer.step == steps)
+    log("exp", f"trainer: AdamW lr {lr}, SWA from {swa.swa_epoch_start} of {trainer.max_epochs} "
+        f"epochs, precision {trainer.precision}, {trainer.step} steps; last logs "
+        f"{ {k: round(v, 4) for k, v in trainer.logged.items()} }")
+    run_name = "single_any_cryovit_mito"
+    weights = exp_dir / run_name / "AD" / "split_1" / "weights.pt"
+    checks[f"{weights.relative_to(exp_dir)} written"] = weights.exists()
+    del trainer, built[:]
+    torch.cuda.empty_cache()
+
+    checks.update(stage("eval_model", "eval_model", eval_model.run_trainer,
+                        validate_experiment_config, exp_ov,
+                        {k: len(young) * n for k, n in DECODER_FORWARD_LAUNCHES.items()}))
+    saved = torch.load(weights, map_location="cpu", weights_only=True)
+    module = tested[-1]
+    checks["eval's module holds weights.pt bit for bit"] = all(
+        torch.equal(v.detach().cpu(), saved[k]) for k, v in module.state_dict().items()
+    ) and set(module.state_dict()) == set(saved)
+    with open(exp_dir / "results" / run_name / "Young.csv", newline="") as f:
+        metrics = list(csv.DictReader(f))
+    log("exp", f"metrics CSV results/{run_name}/Young.csv: {metrics}")
+    checks[f"one metrics row per Young tomogram ({len(young)}), each metric in [0, 1]"] = (
+        sorted(r["tomo_name"] for r in metrics) == sorted(r["tomo_name"] for r in young)
+        and all(0.0 <= float(r[k]) <= 1.0 for r in metrics for k in ("dice_metric", "f1_metric")))
+    predictions = exp_dir / "predictions" / run_name / "Young"
+    checks["TestPredictionWriter wrote each Young tomogram"] = all(
+        (predictions / r["tomo_name"]).exists() for r in young)
+    del module, tested[:]
+    torch.cuda.empty_cache()
+    _report_checks(checks, "experiment mode")
+    return {k: sum(c[k] for c in stages.values()) for k in kernels.KERNELS}
+
+
 def unet3d_training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     """``cryovit-torch train --model unet3d`` one step below its file
     readers, at full width and the reference crop: a synthetic TRAIN_DEPTH x
@@ -2823,7 +3143,10 @@ def sam2_training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     # these arrays have none)
     model_cfg = dataclasses.replace(MODELS["sam2"], custom_kwargs=tuple(
         (k, False if k == "use_cache_features" else v) for k, v in MODELS["sam2"].custom_kwargs))
-    cfg = TrainConfig(label_key="mito", name="smoke_sam2", model=model_cfg)
+    # train --model sam2's recipe (its trainer clips the gradients' norm at 1,
+    # trainer_model/sam2.yaml) with the live encoder
+    cfg = dataclasses.replace(TrainConfig.for_model("sam2", "mito", name="smoke_sam2"),
+                              model=model_cfg)
     cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(cfg.trainer, max_epochs=SAM2_EPOCHS))
     datamodule = build_file_datamodule(cfg, [data_path], [label_path], labels=["mito"],
                                        dataset_cls=dataset_cls)
@@ -3090,6 +3413,8 @@ def main() -> int:
         serving = serving_phase(dev, Path(tmp))
         training = training_phase(dev, Path(tmp))
         torch.cuda.empty_cache()
+        experiment = experiment_phase(dev, Path(tmp))
+        torch.cuda.empty_cache()
         sam = sam_serving_phase(dev, Path(tmp))
         sam_t = sam_serving_phase(dev, Path(tmp), tiny=True)
         torch.cuda.empty_cache()
@@ -3100,8 +3425,8 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": (serving[name] + training[name] + sam[name] + sam_t[name] + unet[name]
-                      + sam2[name]),
+         "launches": (serving[name] + training[name] + experiment[name] + sam[name]
+                      + sam_t[name] + unet[name] + sam2[name]),
          **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}

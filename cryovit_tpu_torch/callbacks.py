@@ -1,5 +1,7 @@
-"""Callbacks and loggers (port of parts of ``cryovit_tpu/callbacks.py``).
+"""Callbacks and loggers (port of ``cryovit_tpu/callbacks.py``).
 
+- :class:`ProgressBar`: one log line per training epoch (stands in for
+  Lightning's RichProgressBar);
 - :class:`TestPredictionWriter` (reference ``models/callbacks.py:15-58``):
   evaluation inputs, labels and probabilities in HDF5;
 - :class:`PredictionWriter` (reference ``models/callbacks.py:61-109``):
@@ -7,8 +9,15 @@
   reference layout;
 - :class:`CsvWriter` (reference ``models/callbacks.py:112-206``): per-sample
   metrics CSVs, one row per tomogram, replaced on a rerun;
-- :class:`TensorBoardLogger`: the trainer's scalars through torch's
-  ``SummaryWriter`` (``cryovit-torch train --log-training``).
+- :class:`TensorBoardLogger`: the trainer's scalars and the experiment's
+  hyperparameters through torch's ``SummaryWriter`` (``cryovit-torch train
+  --log-training``, ``configs/logger/tensorboard.yaml``);
+- :class:`WandbLogger` (``configs/logger/wandb.yaml``): Weights & Biases,
+  imported when the logger is made; without wandb it logs nothing, with a
+  warning.
+
+h5py is imported only where a writer opens a file; ``TestPredictionWriter``
+opens its files in one method (``_write``).
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import csv
 import logging
 from pathlib import Path
+from typing import Any
 
 import numpy as np
 
@@ -26,8 +36,10 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "CsvWriter",
     "PredictionWriter",
+    "ProgressBar",
     "TensorBoardLogger",
     "TestPredictionWriter",
+    "WandbLogger",
     "threshold_masks",
 ]
 
@@ -35,6 +47,15 @@ __all__ = [
 def threshold_masks(preds: np.ndarray, threshold: float) -> np.ndarray:
     """Probabilities → uint8 masks (1 where ``preds >= threshold``)."""
     return (np.asarray(preds) >= threshold).astype(np.uint8)
+
+
+class ProgressBar:
+    """Console progress reporting (stands in for RichProgressBar): the first
+    eight of an epoch's logged values, by name, once per training epoch."""
+
+    def on_train_epoch_end(self, epoch: int, logs: dict[str, float]) -> None:
+        parts = [f"{k}={v:.4f}" for k, v in sorted(logs.items()) if "time" not in k]
+        logger.info("epoch %d | %s", epoch, " ".join(parts[:8]))
 
 
 class TestPredictionWriter:
@@ -46,18 +67,19 @@ class TestPredictionWriter:
         self.results_dir = Path(results_dir)
         self.label_key = label_key
 
-    def on_test_batch_end(self, outputs: BatchedModelResult) -> None:
+    def _write(self, path: Path, data: np.ndarray, label: np.ndarray, preds: np.ndarray) -> None:
         import h5py
 
+        with h5py.File(path, "w") as f:
+            f.create_dataset("data", data=data)
+            f.create_dataset(self.label_key, data=label, compression="gzip")
+            f.create_dataset(f"{self.label_key}_preds", data=preds, compression="gzip")
+
+    def on_test_batch_end(self, outputs: BatchedModelResult) -> None:
         for n in range(outputs.batch_size):
             path = self.results_dir / outputs.samples[n] / outputs.tomo_names[n]
             path.parent.mkdir(parents=True, exist_ok=True)
-            with h5py.File(path, "w") as f:
-                f.create_dataset("data", data=outputs.data[n])
-                f.create_dataset(self.label_key, data=outputs.label[n], compression="gzip")
-                f.create_dataset(
-                    f"{self.label_key}_preds", data=outputs.preds[n], compression="gzip"
-                )
+            self._write(path, outputs.data[n], outputs.label[n], outputs.preds[n])
 
 
 class PredictionWriter:
@@ -153,6 +175,59 @@ class TensorBoardLogger:
         for key, val in scalars.items():
             self._writer.add_scalar(key, val, step)
 
+    def log_hparams(self, hparams: dict[str, Any]) -> None:
+        """The experiment's hyperparameters as one text entry, ``key: value``
+        a line (reference ``run/train_model.py:251-287``)."""
+        if self._writer is None:
+            return
+        self._writer.add_text("hparams", "\n".join(f"{k}: {v}" for k, v in hparams.items()))
+
     def close(self) -> None:
         if self._writer is not None:
             self._writer.close()
+
+
+class WandbLogger:
+    """Weights & Biases scalar and hyperparameter logging (reference
+    ``configs/logger/wandb.yaml`` and the hparams of
+    ``run/train_model.py:251-287``). wandb is imported when the logger is
+    made: without it (air-gapped machines) the logger logs nothing, with a
+    warning, and TensorBoard stays the default."""
+
+    def __init__(
+        self,
+        save_dir: str | Path,
+        entity: str | None = None,
+        project: str = "CryoVIT",
+        group: str | None = None,
+        log_model: bool = False,
+    ) -> None:
+        self.log_model = log_model  # kept for config parity: no model is uploaded
+        self._run = None
+        try:
+            import wandb
+        except ImportError:
+            logger.warning("wandb is not installed; WandbLogger logs nothing "
+                           "(use logger=tensorboard, or install wandb)")
+            return
+        try:
+            self._run = wandb.init(dir=str(save_dir), entity=entity, project=project,
+                                   group=group)
+        except Exception as e:  # network or authentication failures
+            logger.warning("wandb.init failed (%s); scalars not logged", e)
+
+    def log_scalars(self, scalars: dict[str, float], step: int) -> None:
+        if self._run is not None:
+            self._run.log(scalars, step=step)
+
+    def log_hparams(self, hparams: dict[str, Any]) -> None:
+        if self._run is not None:
+            self._run.config.update(
+                {k: v for k, v in hparams.items()
+                 if isinstance(v, (int, float, str, bool, type(None)))},
+                allow_val_change=True,
+            )
+
+    def close(self) -> None:
+        if self._run is not None:
+            self._run.finish()

@@ -135,10 +135,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.command == "train":
-        from cryovit_tpu_torch.config import MODELS, TrainConfig
+        from cryovit_tpu_torch.config import TrainConfig
         from cryovit_tpu_torch.run.train_model import build_model, run_training
 
-        config = TrainConfig(label_key=args.label_key, model=MODELS[args.model])
+        config = TrainConfig.for_model(args.model, args.label_key)
         build_model(config)  # refuses MedSAM's Hiera-T (ROADMAP C2) before any file is read
         if args.label_key not in args.labels:
             raise ValueError(f"label_key {args.label_key!r} must be one of --labels {args.labels}")

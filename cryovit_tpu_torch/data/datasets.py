@@ -1,27 +1,34 @@
 """Host-side datasets: one item = one whole tomogram (numpy).
 
-Port of ``cryovit_tpu/data/datasets.py`` (:func:`random_crop` and the
-CLI-mode :class:`FileDataset`, reference ``datasets/file_dataset.py``).
-Arrays are returned channels-last ``(D, H, W, C)``; the HDF5 files stay
-channels-first for compatibility with the reference. Raw voxels
-(``input_key: data``, UNet3D and SAM2) are read as they are, with no
-padding to a multiple; with ``aux_keys=("sam_features",)`` an HDF5 file's
-cached SAM2 pyramids ride along in ``aux_data``. The experiment-mode
-``TomoDataset`` and the feature-extraction ``VITDataset`` (pandas) are not
-ported yet.
+Port of ``cryovit_tpu/data/datasets.py``: :func:`random_crop`, the
+experiment-mode :class:`TomoDataset` (reference ``datasets/tomo_dataset.py``)
+over the records of a split datamodule, the CLI-mode :class:`FileDataset`
+(reference ``datasets/file_dataset.py``) and the feature-extraction
+:class:`VITDataset` (reference ``datasets/vit_dataset.py``). Arrays are
+returned channels-last ``(D, H, W, C)``; the HDF5 files stay channels-first
+for compatibility with the reference. Raw voxels (``input_key: data``,
+UNet3D and SAM2) are read as they are, with no padding to a multiple; with
+``aux_keys=("sam_features",)`` an HDF5 file's cached SAM2 pyramids ride
+along in ``aux_data``. Each dataset reads its files in one method
+(``TomoDataset._read``, ``FileDataset._load``), the only place that opens
+HDF5.
 """
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 
+from cryovit_tpu_torch.data.transforms import pad_slices_to_multiple
 from cryovit_tpu_torch.io import load_data, load_labels
 from cryovit_tpu_torch.types import FileData, TomogramData
 
-__all__ = ["FileDataset", "random_crop"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["FileDataset", "TomoDataset", "VITDataset", "random_crop"]
 
 MAX_CROP_DEPTH = 128
 FEATURE_CROP_SIDE = 32
@@ -89,6 +96,105 @@ def _to_channels_last(arr: np.ndarray, key: str) -> np.ndarray:
     if arr.ndim == 3:
         return arr[..., np.newaxis]
     raise ValueError(f"unexpected rank for {key}: {arr.shape}")
+
+
+class TomoDataset:
+    """Experiment-mode loader over ``data_root/<sample>/<tomo_name>`` HDF5
+    (reference ``tomo_dataset.py``): one record of a split datamodule → the
+    file's ``input_key`` (uint8 scaled to f32 / 255), its
+    ``labels/<label_key>`` as int8 and its ``aux_keys`` (cached SAM2
+    pyramids under ``sam_features``), channels-last, randomly cropped when
+    ``train`` (from the dataset's own ``default_rng(seed)``), with the
+    record's ``split_key`` as ``split_id``."""
+
+    def __init__(
+        self,
+        records: list[dict[str, Any]],
+        input_key: str,
+        label_key: str,
+        data_root: str | Path,
+        train: bool = False,
+        aux_keys: Sequence[str] = (),
+        split_key: str | None = None,
+        seed: int | None = None,
+        max_crop_depth: int = MAX_CROP_DEPTH,
+    ) -> None:
+        self.records = list(records)
+        self.input_key = input_key
+        self.label_key = label_key
+        self.data_root = Path(data_root)
+        self.train = train
+        self.aux_keys = list(aux_keys or [])
+        self.split_key = split_key
+        self.rng = np.random.default_rng(seed)
+        self.max_crop_depth = int(max_crop_depth)
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def _read(self, tomo_path: Path) -> tuple[np.ndarray, np.ndarray, dict[str, Any]]:
+        """``(input, int8 label, aux)`` of one training-ready HDF5 file: the
+        HDF5 layer of the dataset."""
+        import h5py
+
+        from cryovit_tpu_torch.io.hdf import read_dataset
+
+        with h5py.File(tomo_path, "r") as f:
+            if self.input_key not in f:
+                raise KeyError(f"{tomo_path}: missing input key {self.input_key!r}")
+            label_path = f"labels/{self.label_key}"
+            if label_path not in f:
+                raise KeyError(f"{tomo_path}: missing label key {label_path!r}")
+            data = np.asarray(read_dataset(f[self.input_key]))
+            label = np.asarray(read_dataset(f[label_path])).astype(np.int8)
+            aux: dict[str, Any] = {}
+            for key in self.aux_keys:
+                if key == "sam_features" and key in f:
+                    # cached SAM pyramids: {backbone_fpn, vision_pos_enc} →
+                    # per-level (D, C, h, w) arrays (reference
+                    # tomo_dataset.py:128-144)
+                    grp = f[key]
+                    aux[key] = {
+                        name: [np.asarray(grp[name][str(i)][()]) for i in range(len(grp[name]))]
+                        for name in grp
+                    }
+                elif key in f:
+                    aux[key] = np.asarray(f[key][()])
+                else:
+                    logger.warning("%s: aux key %s missing", tomo_path, key)
+        return data, label, aux
+
+    def __getitem__(self, idx: int) -> TomogramData:
+        if idx >= len(self):
+            raise IndexError(idx)
+        row = self.records[idx]
+        tomo_path = self.data_root / str(row["sample"]) / str(row["tomo_name"])
+        data, label, aux = self._read(tomo_path)
+
+        if data.dtype == np.uint8:
+            data = data.astype(np.float32) / 255.0
+        data = _to_channels_last(np.asarray(data, dtype=np.float32), self.input_key)
+
+        if self.train:
+            data, label = random_crop(
+                data,
+                label,
+                feature_space=self.input_key == "dino_features",
+                rng=self.rng,
+                max_depth=self.max_crop_depth,
+            )
+
+        split_id = (
+            int(row[self.split_key]) if self.split_key and self.split_key in row else None
+        )
+        return TomogramData(
+            sample=str(row["sample"]),
+            tomo_name=str(row["tomo_name"]),
+            split_id=split_id,
+            data=data,
+            label=label,
+            aux_data=aux or None,
+        )
 
 
 class FileDataset:
@@ -188,4 +294,44 @@ class FileDataset:
             data=data_cl,
             label=label,
             aux_data=aux or None,
+        )
+
+
+class VITDataset:
+    """Feature-extraction loader (experiment mode): reads only the raw
+    ``data`` volume of ``data_root/<sample>/<tomo_name>`` (reference
+    ``vit_dataset.py``), edge-padded to a multiple of 16 unless ``use_sam``;
+    normalisation and the 14/16 resize run on the device, as in the JAX
+    package, which always normalises (the reference builds an ImageNet
+    ``Normalize`` here but never applies it)."""
+
+    def __init__(
+        self,
+        records: list[dict[str, Any]],
+        data_root: str | Path,
+        use_sam: bool = False,
+        **_: Any,
+    ) -> None:
+        self.records = list(records)
+        self.data_root = Path(data_root)
+        self.use_sam = use_sam
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def __getitem__(self, idx: int) -> TomogramData:
+        if idx >= len(self):
+            raise IndexError(idx)
+        row = self.records[idx]
+        tomo_path = self.data_root / str(row["sample"]) / str(row["tomo_name"])
+        data, _ = load_data(tomo_path, key="data")
+        raw = data[0]  # (D, H, W) f32
+        stack = raw if self.use_sam else pad_slices_to_multiple(raw)
+        return TomogramData(
+            sample=str(row["sample"]),
+            tomo_name=str(row["tomo_name"]),
+            split_id=None,
+            data=stack[..., np.newaxis].astype(np.float32),
+            label=np.zeros(stack.shape, dtype=np.int8),
+            aux_data={"data": raw},
         )

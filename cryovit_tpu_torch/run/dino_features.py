@@ -1,4 +1,7 @@
-"""DINOv2 feature extraction (port of ``cryovit_tpu/run/dino_features.py``).
+"""DINOv2 feature extraction (port of ``cryovit_tpu/run/dino_features.py``):
+``cryovit-torch features`` (:func:`run_dino`) and the experiment mode's
+per-sample sweep (:func:`run_trainer`, ``python -m
+cryovit_tpu_torch.training.dino_features``).
 
 Output layout matches the reference file format: ``(1536, D, H/16, W/16)``
 fp16 ``dino_features`` beside a gzip ``data`` volume. Slice batches run on
@@ -8,6 +11,7 @@ happen there, and only fp16 features come back to the host.
 
 from __future__ import annotations
 
+import csv
 import logging
 import os
 from collections.abc import Iterator
@@ -17,6 +21,9 @@ import numpy as np
 import torch
 
 from cryovit_tpu_torch import compute_dtype, resolve_device
+from cryovit_tpu_torch.composer import DotDict
+from cryovit_tpu_torch.config import samples as ALL_SAMPLES
+from cryovit_tpu_torch.config import tomogram_exts, validate_dino_config
 from cryovit_tpu_torch.convert import dinov2_from_torch_hub
 from cryovit_tpu_torch.data.transforms import (
     dino_device_preprocess,
@@ -37,7 +44,9 @@ __all__ = [
     "load_dinov2_variables",
     "load_extractor",
     "run_dino",
+    "run_trainer",
     "save_feature_hdf",
+    "sweep_sources",
 ]
 
 TORCH_HUB_WEIGHTS = "dinov2_vitg14_reg4_pretrain.pth"
@@ -225,3 +234,93 @@ def run_dino(
         logger.info("wrote %s (%s)", out_path, features.shape)
         written.append(out_path)
     return written
+
+
+# ---- experiment path ------------------------------------------------------
+
+def _read_source(path: Path) -> dict[str, np.ndarray]:
+    """Flat dict of an annotated tomogram's datasets (the ``labels`` group
+    flattened to bare names), mirroring the reference's source-copy walk."""
+    import h5py
+
+    from cryovit_tpu_torch.io.hdf import read_dataset
+
+    out: dict[str, np.ndarray] = {}
+    with h5py.File(path, "r") as f:
+        for key in f:
+            item = f[key]
+            if isinstance(item, h5py.Group):
+                for sub in item:
+                    out[sub] = np.asarray(read_dataset(item[sub]))
+            else:
+                out[key] = np.asarray(read_dataset(item))
+    return out
+
+
+def sweep_sources(cfg: DotDict) -> list[tuple[str, Path, list[str]]]:
+    """The extraction sweep's ``(sample, source dir, tomogram names)``:
+    ``cfg.sample`` or every sample with a directory under
+    ``data_dir/<feature_name>``, the names from ``csv/<sample>.csv``'s
+    ``tomo_name`` column (read with the ``csv`` module) or else the
+    directory's ``.hdf`` / ``.mrc`` files, sorted."""
+    data_dir = Path(cfg.paths.data_dir)
+    src_dir = data_dir / cfg.paths.feature_name
+    csv_dir = data_dir / cfg.paths.csv_name
+    sample_names = (
+        [cfg.sample] if cfg.get("sample") else [s for s in ALL_SAMPLES if (src_dir / s).exists()]
+    )
+    out = []
+    for sample in sample_names:
+        tomo_dir = src_dir / sample
+        csv_file = csv_dir / f"{sample}.csv"
+        if csv_file.exists():
+            with open(csv_file, newline="") as f:
+                names = [row["tomo_name"] for row in csv.DictReader(f)]
+        else:
+            names = sorted(f.name for f in tomo_dir.glob("*") if f.suffix in tomogram_exts)
+        out.append((sample, tomo_dir, names))
+    return out
+
+
+def run_trainer(
+    cfg: DotDict, dino_cfg: DinoV2Config | None = None, device: torch.device | str | None = None
+) -> None:
+    """Per-sample feature extraction sweep (reference ``run_trainer:304-350``):
+    src = ``data_dir/<feature_name>/<sample>`` (annotated tomograms), dst =
+    ``data_dir/<tomo_name>/<sample>`` (training-ready files). ``random_init``
+    draws seeded weights; ``quant_int8`` takes the w8a8 mode
+    (``features --int8``). ``export_features`` (the PCA images) raises
+    until visualization is ported (ROADMAP A7). Runs on the GPU unless
+    ``device`` names the CPU."""
+    from cryovit_tpu_torch.run.common import pipeline_io
+
+    validate_dino_config(cfg)
+    if cfg.get("export_features"):
+        raise NotImplementedError(
+            "export_features=True writes DINOv2 PCA images, which come with the port of "
+            "visualization (ROADMAP A7); run with export_features=false"
+        )
+    device = resolve_device(device)
+    dst_dir = Path(cfg.paths.data_dir) / cfg.paths.tomo_name
+    model = load_extractor(cfg.model_dir, bool(cfg.get("random_init", False)), dino_cfg, device,
+                           quant_int8=bool(cfg.get("quant_int8", False)))
+    extractor = DinoExtractor(model, batch_size=int(cfg.batch_size))
+
+    for sample, tomo_dir, names in sweep_sources(cfg):
+
+        def read(i, _names=names, _dir=tomo_dir):
+            return _read_source(_dir / _names[i])
+
+        def compute(i, source):
+            data = source["data"]
+            # uint8 stays uint8: the extractor scales it on the device
+            stack = data if data.dtype == np.uint8 else data.astype(np.float32)
+            return source, extractor.extract(pad_slices_to_multiple(stack))
+
+        def write(i, result, _names=names, _sample=sample):
+            source, features = result
+            save_feature_hdf(source, features, _names[i], dst_dir / _sample)
+            logger.info("[%s] %s → %s", _sample, _names[i], features.shape)
+
+        # HDF5 decode / device compute / gzip write overlap
+        pipeline_io(len(names), read, compute, write)

@@ -1,4 +1,7 @@
-"""SAM2 image-encoder feature extraction (port of ``cryovit_tpu/run/sam_features.py``).
+"""SAM2 image-encoder feature extraction (port of ``cryovit_tpu/run/sam_features.py``):
+``cryovit-torch features --use-sam`` (:func:`run_sam`) and the experiment
+mode's per-sample sweep (:func:`run_trainer`, ``python -m
+cryovit_tpu_torch.training.sam_features``).
 
 Runs the frozen Hiera + FPN encoder over every slice at 512² and stores the
 ``backbone_fpn`` / ``vision_pos_enc`` pyramids as fp16 in the training-ready
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from cryovit_tpu_torch import compute_dtype, resolve_device
+from cryovit_tpu_torch.composer import DotDict
+from cryovit_tpu_torch.config import validate_dino_config
 from cryovit_tpu_torch.convert import sam2_encoder_from_published
 from cryovit_tpu_torch.io import load_data
 from cryovit_tpu_torch.models.sam2.config import SAM2Config
@@ -32,6 +37,7 @@ from cryovit_tpu_torch.models.sam2.encoder import (
     random_encoder_state_dict,
 )
 from cryovit_tpu_torch.ops.resize import resize_linear_2d
+from cryovit_tpu_torch.run import dino_features
 from cryovit_tpu_torch.run.dino_features import default_model_dir, save_feature_hdf
 
 logger = logging.getLogger(__name__)
@@ -43,6 +49,7 @@ __all__ = [
     "load_sam_encoder",
     "make_sam_encoder_state",
     "run_sam",
+    "run_trainer",
 ]
 
 SAM2_CHECKPOINT = "sam2.1_hiera_large.pt"
@@ -174,3 +181,27 @@ def run_sam(
         logger.info("wrote %s", out_path)
         written.append(out_path)
     return written
+
+
+def run_trainer(
+    cfg: DotDict, sam_cfg: SAM2Config | None = None, device: torch.device | str | None = None
+) -> None:
+    """Experiment path: the per-sample SAM2 pyramid sweep (reference
+    ``run/dino_features.py:304-350`` with ``use_sam=True``): each annotated
+    tomogram of ``data_dir/<feature_name>/<sample>`` (uint8 scaled to
+    [0, 1]) → ``data_dir/<tomo_name>/<sample>`` with its
+    ``sam_features/<key>/<level>``. ``random_init`` draws seeded weights.
+    Runs on the GPU unless ``device`` names the CPU."""
+    validate_dino_config(cfg)
+    device = resolve_device(device)
+    dst_dir = Path(cfg.paths.data_dir) / cfg.paths.tomo_name
+    encoder = load_sam_encoder(cfg.model_dir, bool(cfg.get("random_init", False)), sam_cfg, device)
+    extractor = SamFeatureExtractor(encoder, batch_size=int(cfg.batch_size))
+    for sample, tomo_dir, names in dino_features.sweep_sources(cfg):
+        for name in names:
+            source = dino_features._read_source(tomo_dir / name)
+            data = source["data"]
+            stack = (data.astype(np.float32) / 255.0 if data.dtype == np.uint8
+                     else data.astype(np.float32))
+            save_feature_hdf(source, extractor.extract(stack), name, dst_dir / sample)
+            logger.info("[%s] %s", sample, name)

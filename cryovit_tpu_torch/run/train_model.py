@@ -1,6 +1,12 @@
-"""Training runner (port of ``cryovit_tpu/run/train_model.py:run_training``).
+"""Training runners (port of ``cryovit_tpu/run/train_model.py``).
 
-Trains a model on explicit tomogram and label files and writes a
+- :func:`run_training` — the file-path API of ``cryovit-torch train``;
+- :func:`run_trainer` — the experiment mode (``python -m
+  cryovit_tpu_torch.training.train_model``): a composed config, the splits
+  CSV's datamodule, the experiment directory, ``weights.pt``, optional
+  resume.
+
+:func:`run_training` trains a model on explicit tomogram and label files and writes a
 distributable ``.model`` artifact in the reference torch format, which
 ``cryovit-torch evaluate``/``infer``, the JAX package and the reference
 stack all read: the CryoVIT decoder on DINOv2 features, the U-Net on raw
@@ -10,7 +16,6 @@ under ``model_dir/<sam_name>`` is laid over the initial weights, random
 ones with a warning when there is none). MedSAM's Hiera-T is refused up
 front (ROADMAP C2). The JAX package composes a YAML config here; the port
 builds the same recipe from :class:`cryovit_tpu_torch.config.TrainConfig`.
-The experiment-mode ``run_trainer`` (splits CSV) is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +29,14 @@ import torch
 
 from cryovit_tpu_torch import require_bf16_on_cuda, resolve_device
 from cryovit_tpu_torch.callbacks import TensorBoardLogger
-from cryovit_tpu_torch.config import LOSSES, METRICS, MODELS, PRECISION_DTYPES, TrainConfig
+from cryovit_tpu_torch.composer import DotDict
+from cryovit_tpu_torch.config import (
+    LOSSES,
+    METRICS,
+    PRECISION_DTYPES,
+    TrainConfig,
+    validate_experiment_config,
+)
 from cryovit_tpu_torch.data import DataLoader, FileDataModule, FileDataset
 from cryovit_tpu_torch.models import SAM2, BaseModel, CryoVIT, UNet3D
 from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
@@ -36,7 +48,7 @@ from cryovit_tpu_torch.types import ModelType
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["build_file_datamodule", "build_model", "build_trainer", "run_training"]
+__all__ = ["build_file_datamodule", "build_model", "build_trainer", "run_trainer", "run_training"]
 
 
 _FAMILIES = {"cryovit": CryoVIT, "unet3d": UNet3D, "sam2": SAM2, "medsam": SAM2}
@@ -127,13 +139,19 @@ def _initial_weights(ckpt_path: Path, model_type: ModelType | str) -> dict[str, 
     return load_jax_weights(ckpt_path, model_type)
 
 
-def _sam_pretrained(model: BaseModel, cfg: TrainConfig) -> dict | None:
+def _sam_pretrained(model: BaseModel, cfg: TrainConfig | DotDict) -> dict | None:
     """The published SAM2 / MedSAM checkpoint under ``model_dir/<sam_name>``
-    as a partial state dict (``SAM2.load_pretrained``); None for the other
-    families, or, with a warning, when the directory holds none."""
+    (the recipe's, or a composed config's ``paths``) as a partial state dict
+    (``SAM2.load_pretrained``); None for the other families, or, with a
+    warning, when the directory holds none."""
     if not isinstance(model, SAM2):
         return None
-    sam_dir = Path(cfg.model_dir) / cfg.sam_name if cfg.model_dir else default_model_dir(cfg.sam_name)
+    if isinstance(cfg, DotDict):
+        sam_dir = Path(str(cfg.paths.model_dir)) / str(cfg.paths.get("sam_name", "SAM2"))
+    elif cfg.model_dir:
+        sam_dir = Path(cfg.model_dir) / cfg.sam_name
+    else:
+        sam_dir = default_model_dir(cfg.sam_name)
     return model.load_pretrained(sam_dir)
 
 
@@ -167,7 +185,7 @@ def run_training(
     bf16, the kernels' dtype: f32 raises before anything is built or
     written.
     """
-    cfg = config or TrainConfig(label_key=label_key, model=MODELS[ModelType(model_type).value])
+    cfg = config or TrainConfig.for_model(ModelType(model_type).value, label_key)
     device = resolve_device(device)
     precision = cfg.trainer.precision
     require_bf16_on_cuda(device, PRECISION_DTYPES[precision],
@@ -201,3 +219,65 @@ def run_training(
         torch_path = save_model(model_name, label_key, module, result_dir / f"{model_name}.torch.model")
         logger.info("saved reference-readable torch artifact to %s", torch_path)
     return out_path
+
+
+def run_trainer(cfg: DotDict, device: torch.device | str | None = None) -> Path:
+    """Experiment-mode training (reference ``run/train_model.py:206-312``):
+    validate, set up ``exp_dir/<name>/<sample>[/split_k][/test_X]``, fit on
+    the splits datamodule (resuming from its ``last.ckpt`` with
+    ``resume_ckpt``; SAM2's published checkpoint laid over its initial
+    weights), and write ``weights.pt`` there: the ``torch.save``'d state
+    dict under the reference's names, as the original CryoVIT writes it
+    (the JAX package writes ``weights.msgpack``; both packages read either).
+    Runs on the GPU unless ``device`` names the CPU."""
+    from cryovit_tpu_torch.run import common
+
+    validate_experiment_config(cfg)
+    device = resolve_device(device)
+    exp_dir = common.setup_exp_dir(cfg)
+    datamodule = common.build_datamodule(cfg)
+    model = common.build_model(cfg, cfg.trainer.get("precision"))
+
+    trainer = common.build_trainer(cfg, device)
+    trainer.default_root_dir = exp_dir
+    if cfg.get("resume_ckpt"):
+        trainer.enable_checkpointing = True
+
+    # hparam logging (reference run/train_model.py:251-287)
+    if trainer.loggers:
+        dm = cfg.get("datamodule", {})
+        sample = dm.get("sample")
+        hparams = {
+            "datamodule_type": str(dm.get("_target_", "")),
+            "model_name": cfg.model.name,
+            "label_key": cfg.label_key,
+            "experiment": cfg.name,
+            "split_id": dm.get("split_id"),
+            "sample": (
+                "_".join(sorted(map(str, sample))) if isinstance(sample, (list, tuple)) else sample
+            ),
+            "test_sample": dm.get("test_sample"),
+            "resume_ckpt": cfg.get("resume_ckpt"),
+            "ckpt_path": cfg.get("ckpt_path"),
+            "seed": cfg.get("random_seed", 42),
+            "lr": cfg.model.get("lr"),
+            "weight_decay": cfg.model.get("weight_decay"),
+        }
+        if "sam2" in str(cfg.model.get("_target_", "")).lower():
+            custom = cfg.model.get("custom_kwargs") or {}
+            hparams["prompt_lr"] = custom.get("prompt_lr")
+        for lg in trainer.loggers:
+            if hasattr(lg, "log_hparams"):
+                lg.log_hparams(hparams)
+
+    ckpt = exp_dir / "last.ckpt"
+    module = trainer.fit(
+        model,
+        datamodule,
+        ckpt_path=ckpt if cfg.get("resume_ckpt") and ckpt.exists() else None,
+        pretrained_variables=_sam_pretrained(model, cfg),
+    )
+    weights = exp_dir / "weights.pt"
+    torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, weights)
+    logger.info("saved weights to %s", weights)
+    return exp_dir

@@ -2,8 +2,9 @@
 
 Reference ``configs/callbacks/stochastic_weight_average.yaml``: Lightning's
 SWA with ``swa_lrs = model.lr``, ``swa_epoch_start = 0.8`` and
-``annealing_epochs = 0``. Those two settings are fixed here: the learning
-rate stays constant and is never annealed, and the weights of the epochs
+``annealing_epochs = 0``. The callback takes those two keywords, as the
+YAML passes them, and keeps them as the JAX package does; the learning rate
+stays constant and is never annealed, and the weights of the epochs
 after ``swa_epoch_start`` are averaged and swapped in at the end of
 training. The decoder normalises with GroupNorm, so no batch-norm
 statistics need re-estimating. The average lives on the parameters' device.
@@ -19,7 +20,12 @@ __all__ = ["StochasticWeightAveraging"]
 class StochasticWeightAveraging:
     """Callback: running average of the named parameters over the SWA window."""
 
-    def __init__(self, swa_epoch_start: float = 0.8) -> None:
+    def __init__(
+        self, swa_lrs: float | None = None, swa_epoch_start: float = 0.8,
+        annealing_epochs: int = 0,
+    ) -> None:
+        self.swa_lrs = swa_lrs  # kept for config parity; the LR stays constant
+        self.annealing_epochs = annealing_epochs
         self.swa_epoch_start = float(swa_epoch_start)
         self.swa_params: dict[str, torch.Tensor] | None = None
         self.count = 0

@@ -20,11 +20,46 @@ __all__ = [
     "BatchedModelResult",
     "FileData",
     "ModelType",
+    "Sample",
     "TomogramBatch",
     "TomogramData",
     "pad_to",
     "round_up",
 ]
+
+
+class Sample(Enum):
+    """Registry of all valid CryoET samples (reference ``types.py:15-47``)."""
+
+    BACHD = "BACHD"
+    BACHD_Microtubules = "BACHD Microtubules"
+    dN17_BACHD = "dN17 BACHD"
+    Q109 = "Q109"
+    Q109_Microtubules = "Q109 Microtubules"
+    Q18 = "Q18"
+    Q18_Microtubules = "Q18 Microtubules"
+    Q20 = "Q20"
+    Q53 = "Q53"
+    Q53_KD = "Q53 PIAS1"
+    Q66 = "Q66"
+    Q66_GRFS1 = "Q66 GRFS1"
+    Q66_KD = "Q66 PIAS1"
+    WT = "Wild Type"
+    WT_Microtubules = "Wild Type Microtubules"
+    cancer = "Cancer"
+    AD = "AD"
+    AD_Abeta = "AD Abeta"
+    Aged = "Aged"
+    Young = "Young"
+    RGC_CM = "RGC CM"
+    RGC_control = "RGC Control"
+    RGC_naPP = "RGC naPP"
+    RGC_PP = "RGC PP"
+    CZI_Algae = "Algae"
+    CZI_Campy_C = "Campy C"
+    CZI_Campy_CDel = "Campy C-Deletion"
+    CZI_Campy_F = "Campy F"
+    CZI_Fibroblast = "Mouse Fibroblast"
 
 
 class ModelType(Enum):

@@ -31,9 +31,10 @@ from cryovit_tpu_torch.ops.window_attention import (
 
 
 def test_port_imports_no_jax_flax_or_h5py():
-    """Every module of the port imports in a fresh interpreter (this test
-    process has jax loaded through conftest.py) without pulling in jax,
-    flax, h5py or the JAX package."""
+    """Every module of the port, the experiment mode's composer, datamodules
+    and ``training`` entry points among them, imports in a fresh interpreter
+    (this test process has jax loaded through conftest.py) without pulling
+    in jax, flax, h5py, pyyaml, pandas, sklearn, wandb or the JAX package."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -42,14 +43,55 @@ def test_port_imports_no_jax_flax_or_h5py():
         for name in names:
             importlib.import_module(name)
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "flax", "h5py", "cryovit_tpu"))
-        print(len(names), loaded)
+                        if m.split(".")[0] in ("jax", "flax", "h5py", "cryovit_tpu", "yaml",
+                                               "pandas", "sklearn", "wandb"))
+        print(len(names), loaded, sorted(n for n in names if ".training." in n
+                                         or n.endswith((".composer", ".datamodules"))))
         """
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, check=True, timeout=120
-    ).stdout.split(maxsplit=1)
+    ).stdout.split(maxsplit=2)
     assert int(out[0]) >= 20 and out[1].strip() == "[]", out
+    for name in ("composer", "data.datamodules", "training.train_model", "training.eval_model"):
+        assert f"cryovit_tpu_torch.{name}'" in out[2], out
+
+
+def test_experiment_mode_runs_without_yaml_pandas_sklearn_h5py_or_jax(tmp_path):
+    """A GPU host without those packages: with yaml, pandas, sklearn, h5py
+    and jax made unimportable, ``train_model`` composes, its split datamodule
+    reads the splits CSV and yields its records, and ``--list-sweep`` prints
+    the grid."""
+    (tmp_path / "csv").mkdir()
+    (tmp_path / "csv" / "splits.csv").write_text(
+        "sample,tomo_name,split_id\n" + "".join(f"AD,t{i}.hdf,{i % 2}\n" for i in range(4)))
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for name in ("yaml", "pandas", "sklearn", "h5py", "jax", "flax", "cryovit_tpu"):
+            sys.modules[name] = None
+        from cryovit_tpu_torch.config import compose, validate_experiment_config
+        from cryovit_tpu_torch.run.common import build_datamodule
+        from cryovit_tpu_torch.training import sweep_main
+        cfg = compose("train_model", ["model=cryovit", "datamodule=fractional_loo",
+                                      "label_key=mito", "datamodule.sample=[AD]",
+                                      "datamodule.test_sample=AD", "datamodule.split_id=1",
+                                      "paths.data_dir={tmp_path}"])
+        validate_experiment_config(cfg)
+        dm = build_datamodule(cfg)
+        print(cfg.model.lr, dm.train_df(), len(dm.test_df()))
+        sys.exit(sweep_main("train_model", None, None,
+                            ["model=unet3d", "+experiments=multi_bacteria", "--list-sweep"]))
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert lines[0] == "0.0001 [] 4", lines[0]
+    assert len(lines) == 1 + 3 * 10 * 2
+    assert lines[1] == ("0 ['datamodule.sample=CZI_Campy_C', 'datamodule.split_id=0', "
+                        "'model=cryovit']")
 
 
 def test_kernel_loader_names_nvcc_when_the_toolkit_is_missing(monkeypatch, tmp_path):
