@@ -72,7 +72,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. serving main path — a synthetic 64×512×512 uint8 tomogram written as MRC;
    the full-width DINOv2 ViT-g/14 with seeded random weights and a seeded
    CryoVIT decoder saved as a ``.model``; fused inference (raw tomogram →
-   masks) and feature extraction on it. Then the DINOv2 variants on the same
+   masks) and feature extraction on it. Then ``features -v``
+   (``run_dino(..., visualize=True)``, the same seeded weights built again):
+   exactly 40 ``flash_attention`` launches, its features bit for bit the
+   extraction's, seven PCA PNGs (slices 0, 10, ..., 60, SIDE × 2·SIDE RGB)
+   read back by the port's reader; the device's PCA (float64 ``eigh`` on the
+   card) against a float64 numpy reference on the host on the same fp16
+   features: the top four eigenvalues, the largest principal angle between
+   the top-3 subspaces, each component's embedding with its sign where its
+   eigen-gap is wide; the PCA stage's, the PNG writes' and the batch's times.
+   Then the DINOv2 variants on the same
    weights (shared, not copied) and tomogram: extraction with
    ``pair_heads=False`` (exactly 40 ``flash_attention_bhnd`` launches) and
    with ``fused_ln=True`` (exactly 40 ``flash_attention`` and 80
@@ -111,8 +120,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. experiment mode — ``python -m cryovit_tpu_torch.training.*`` through
    ``sweep_main`` on a synthetic data tree (AD and Young, 3 blob tomograms
    of 64×512×512 each, ``csv/splits.csv``): the ``dino_features`` sweep
-   (full-width ViT-g/14, seeded weights) writes the training-ready files,
-   its features bit for bit ``DinoExtractor.extract``'s; the
+   (full-width ViT-g/14, seeded weights, ``export_features=true``) writes
+   the training-ready files, its features bit for bit
+   ``DinoExtractor.extract``'s, and seven PCA PNGs per tomogram under
+   ``exp_dir/dino_images/<sample>/<stem>``; the
    ``sam_features`` sweep (Hiera-L, seeded, ``sample=Young``) writes
    Young's pyramids; ``train_model`` (``model=cryovit datamodule=single
    datamodule.sample=AD datamodule.split_id=1 datamodule.test_sample=Young
@@ -157,7 +168,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    5), the step split into encoder forward / heads forward / heads backward
    / optimizer (device and host ms), profiles of the encoder forward and of
    a whole step (device busy share), peak memory, epoch times, device ms of
-   one test and one predict step.
+   one test and one predict step. Last, ``kv_cache``: the trained module's
+   tracking pass with the live encoder on 64 slices under ``torch.no_grad``,
+   uncached and cached: max|dprob| and mask agreement against limits twice
+   the CPU's bf16 reading of the same pass at tiny_test widths, device ms
+   and host wall per slice, and exactly 32/32/3 launches each.
 
 Launch counters are zeroed just before each main path and read just after;
 every kernel of a path must have run (the SAM path: exactly the counts the
@@ -257,6 +272,18 @@ DECODER_FORWARD_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 6, "convt2
 # two 64-slice chunks, each launching rows 9, 10, 11 as a serving batch does
 # (SAM_BATCH_LAUNCHES below); the heads have no kernel
 SAM2_EPOCHS = 3
+# the kv_cache check: the tracking pass with the live encoder on this many
+# slices of the SAM2 phase's tomogram, cached and uncached
+KV_SLICES = 64
+# features -v: the slices drawn (every 10th) and the PCA's limits against a
+# float64 host reference on the same fp16 features: the largest principal
+# angle between the top-3 subspaces, and per component (with its sign) the
+# embedding's max|diff| over its max|value|, held only where the component's
+# eigen-gap to both neighbours exceeds PCA_GAP of the top eigenvalue
+VIZ_SLICES = list(range(0, 64, 10))
+PCA_ANGLE_LIMIT = 1e-6
+PCA_EMB_LIMIT = 1e-4
+PCA_GAP = 1e-3
 SAM2_STEP_NONZERO = {"window_block_attention": 64, "window_block_mlp": 64, "window_attention": 6}
 SAM2_STEP_LAUNCHES = {**dict.fromkeys(KERNELS, 0), **SAM2_STEP_NONZERO}
 # the CryoVIT .model's file-based inference against the fused path on the
@@ -1874,13 +1901,143 @@ def serving_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
         save_feature_hdf({"data": volume}, feats, f"{path.stem}.hdf", workdir / "features")
         log("serve", f"wrote {writer.result_paths[0].name} and features/{path.stem}.hdf")
     del extractor
+    viz_counts = visualization_phase(dev, workdir, segmenter.backbone, files, extracted[0])
     variant_counts = dino_variants_phase(dev, segmenter.backbone, files, feats, DEPTH / t_feat)
     int8_counts = int8_attention_phase(dev, segmenter.backbone)
     w8a8_counts = w8a8_serving_phase(dev, segmenter, files, feats, masks,
                                      {"extraction": DEPTH / t_feat, "fused": DEPTH / t_infer})
     del segmenter
     torch.cuda.empty_cache()
-    return {k: counts[k] + variant_counts[k] + int8_counts[k] + w8a8_counts[k] for k in counts}
+    return {k: counts[k] + viz_counts[k] + variant_counts[k] + int8_counts[k] + w8a8_counts[k]
+            for k in counts}
+
+
+def visualization_phase(dev: torch.device, workdir: Path, backbone, files, extracted
+                        ) -> dict[str, int]:
+    """``features -v``: ``run_dino(..., visualize=True)`` on the serving
+    tomogram with the same seeded ViT-g/14 weights (built again by
+    ``run_dino``, as the verb does). Checks: exactly 40 row-1 launches (one
+    64-slice batch) and nothing else; the features bit for bit the serving
+    path's; seven PNGs (slices 0, 10, ..., 60), each SIDE x 2·SIDE RGB, read
+    back by the port's reader, the raw half the flipped 8-bit slice and the
+    map half not flat. Then the device's PCA (``fit_pca``, float64 on the
+    card) against a float64 numpy reference on the host on the same fp16
+    features: the top four eigenvalues, the largest principal angle between
+    the two top-3 subspaces (limit PCA_ANGLE_LIMIT), and per component with
+    its sign the embedding (limit PCA_EMB_LIMIT of its max) where its
+    eigen-gap is wider than PCA_GAP. Times of the PCA stage, of the
+    colouring and PNG writes, and of the 64-slice extraction beside them."""
+    import importlib.util
+
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.data.transforms import pad_slices_to_multiple
+    from cryovit_tpu_torch.io.hdf import read_hdf
+    from cryovit_tpu_torch.run import dino_features
+    from cryovit_tpu_torch.visualization import dino_pca
+    from cryovit_tpu_torch.visualization._image import read_png
+
+    name = torch.cuda.get_device_name(0)
+    path, volume, feats = extracted
+    store = _HDF5Store() if importlib.util.find_spec("h5py") is None else None
+    patches = [(dino_features, "save_feature_hdf", store.save_feature_hdf)] if store else []
+    out_dir = workdir / "viz_features"
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _patched(patches):
+        (written,) = dino_features.run_dino(files, out_dir, batch_size=SLICE_BATCH,
+                                            random_init=True, device=dev, visualize=True)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    written_feats = (store.read(written, "dino_features") if store is not None
+                     else read_hdf(written, key="dino_features")[1])
+    image_dir = out_dir / "dino_images" / path.stem / path.stem
+    pngs = sorted(image_dir.glob("*.png"), key=lambda p: int(p.stem))
+    images = [read_png(p) for p in pngs]
+    lo, span = volume.min(), volume.max() - volume.min()
+    raw = [((volume[z] - lo) / span * 255.0).astype(np.uint8)[::-1] for z in VIZ_SLICES]
+    log("viz", f"features -v (run_dino, visualize=True): {DEPTH} slices in {t_run:.3f} s wall, "
+        f"weights built included; {len(pngs)} PNGs {[p.name for p in pngs]} in "
+        f"{image_dir.relative_to(workdir)}; launches {counts} ({name})")
+
+    # the device's PCA against float64 numpy on the host, same fp16 features
+    sel = torch.from_numpy(feats[:, VIZ_SLICES]).to(dev)
+    x = dino_pca._tokens(sel.float())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, comps_d, var_d = dino_pca.fit_pca(x)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb_d = dino_pca._calculate_pca(sel)
+    torch.cuda.synchronize()
+    t_pca = time.perf_counter() - t0
+    xh = x.cpu().double().numpy()
+    mean_h = xh.mean(0)
+    t0 = time.perf_counter()
+    w, v = np.linalg.eigh((xh - mean_h).T @ (xh - mean_h))
+    t_host = time.perf_counter() - t0
+    var_h, comps_h = w[::-1] / (len(xh) - 1), v[:, ::-1][:, :3].T
+    comps_h = comps_h * np.sign(comps_h[np.arange(3), np.abs(comps_h).argmax(1)])[:, None]
+    comps_d, var_d = comps_d.cpu().numpy(), var_d.cpu().numpy()
+    # sine of the largest principal angle: the part of the device's basis
+    # outside the host's subspace
+    sin_max = np.linalg.norm(comps_d - (comps_d @ comps_h.T) @ comps_h, 2)
+    angle = float(np.arcsin(min(sin_max, 1.0)))
+    up = dino_pca.resize_bicubic_2d(sel.float().cpu(), 2 * sel.shape[2], 2 * sel.shape[3])
+    emb_h = (dino_pca._tokens(up).double().numpy() - mean_h) @ comps_h.T
+    emb_d = emb_d.cpu().double().numpy().reshape(-1, 3)
+    lam = np.concatenate([[np.inf], var_h[:4]])
+    gaps = [min(lam[i] - lam[i + 1], lam[i + 1] - lam[i + 2]) / var_h[0] for i in range(3)]
+    emb_err = [float(np.abs(emb_d[:, i] - emb_h[:, i]).max() / np.abs(emb_h[:, i]).max())
+               for i in range(3)]
+    log("viz", f"PCA of {x.shape[0]} tokens x {x.shape[1]} channels (slices {VIZ_SLICES}): top "
+        f"four eigenvalues device {' '.join(f'{e:.6g}' for e in var_d[:4])}, host float64 "
+        f"{' '.join(f'{e:.6g}' for e in var_h[:4])}; largest principal angle {angle:.3g} rad "
+        f"(limit {PCA_ANGLE_LIMIT:g}); per component relative eigen-gap "
+        f"{' '.join(f'{g:.3g}' for g in gaps)}, embedding max|diff|/max "
+        f"{' '.join(f'{e:.3g}' for e in emb_err)} (limit {PCA_EMB_LIMIT:g} where the gap "
+        f"> {PCA_GAP:g})")
+
+    # times: the batch's extraction, the PCA stage, the colours and PNG writes
+    extractor = dino_features.DinoExtractor(backbone, batch_size=SLICE_BATCH)
+    stack = pad_slices_to_multiple(volume)
+    extractor.extract_device(stack)
+    t_batch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fd = extractor.extract_device(stack)
+        torch.cuda.synchronize()
+        t_batch.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    dino_pca.export_pca(volume, fd, "timed", workdir / "viz_timed")
+    t_export = time.perf_counter() - t0
+    del extractor, fd
+    log("viz", f"times: the {SLICE_BATCH}-slice extraction {1e3 * min(t_batch):.1f} ms (best of "
+        f"3, to fp16 on the device); the PCA stage {1e3 * t_pca:.1f} ms (fit alone "
+        f"{1e3 * t_fit:.1f} ms; numpy float64 eigh on the host {1e3 * t_host:.1f} ms); "
+        f"export_pca {1e3 * t_export:.1f} ms, of which colours + {len(VIZ_SLICES)} PNG writes "
+        f"{1e3 * (t_export - t_pca):.1f} ms ({name})")
+    want_counts = {k: 40 if k == "flash_attention" else 0 for k in counts}
+    _report_checks({
+        f"features -v launches exactly 40 flash_attention and nothing else": counts == want_counts,
+        "features -v's features bit for bit the serving path's": np.array_equal(written_feats, feats),
+        f"{len(VIZ_SLICES)} PNGs {[f'{z}.png' for z in VIZ_SLICES]}":
+            [p.name for p in pngs] == [f"{z}.png" for z in VIZ_SLICES],
+        f"each PNG {SIDE}x{2 * SIDE} RGB": all(im.shape == (SIDE, 2 * SIDE, 3) for im in images),
+        "raw halves the flipped 8-bit slices": all(
+            np.array_equal(im[:, :SIDE], np.repeat(r[..., None], 3, -1))
+            for im, r in zip(images, raw)),
+        "map halves not flat": all(float(im[:, SIDE:].std()) > 1.0 for im in images),
+        f"largest principal angle <= {PCA_ANGLE_LIMIT:g} rad": angle <= PCA_ANGLE_LIMIT,
+        "embedding per component within its limit where its eigen-gap is wide": all(
+            e <= PCA_EMB_LIMIT for e, g in zip(emb_err, gaps) if g > PCA_GAP),
+    }, "visualization path")
+    return counts
 
 
 # kernel-name fragments → the layer a device kernel of the DINOv2 forward
@@ -2753,8 +2910,18 @@ def experiment_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
     checks = {}
     n_tomos = len(rows)
     checks.update(stage("dino_features sweep", "dino_features", dino_features.run_trainer,
-                        validate_dino_config, ["+random_init=true"],
+                        validate_dino_config, ["+random_init=true", "export_features=true"],
                         {"flash_attention": 40 * n_tomos * -(-EXP_DEPTH // 128)}))
+    # export_features=true: each tomogram's PCA maps under exp_dir/dino_images
+    from cryovit_tpu_torch.visualization._image import read_png
+
+    pngs = sorted((exp_dir / "dino_images").rglob("*.png"))
+    want_pngs = sorted(exp_dir / "dino_images" / r["sample"] / Path(r["tomo_name"]).stem / f"{z}.png"
+                       for r in rows for z in range(0, EXP_DEPTH, 10))
+    checks[f"export_features wrote {len(want_pngs)} PCA maps, {SIDE}x{2 * SIDE} RGB"] = (
+        pngs == want_pngs and read_png(pngs[0]).shape == (SIDE, 2 * SIDE, 3))
+    log("exp", f"export_features: {len(pngs)} PNGs under {(exp_dir / 'dino_images').name}/"
+        f"<sample>/<stem>/ (e.g. {pngs[0].relative_to(exp_dir) if pngs else None})")
     # the sweep's features against DinoExtractor's on the same weights
     ad0 = data_dir / "tomograms" / "AD" / "blobs_0.hdf"
     feats = read_back(ad0, "dino_features")
@@ -3293,9 +3460,112 @@ def sam2_training_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
             step_counts == SAM2_STEP_LAUNCHES,
         "every kernel of the path launched": all(counts[k] > 0 for k in SAM2_STEP_NONZERO),
     }, "SAM2 training path")
-    del module, trainer
+    del trainer
     torch.cuda.empty_cache()
-    return counts
+    kv_counts = sam2_kv_cache_check(dev, module, volume)
+    del module
+    torch.cuda.empty_cache()
+    return counts, kv_counts
+
+
+def _tracking_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max|dprob|, share of voxels whose 0.5-mask differs)."""
+    return ((got - want).abs().max().item(),
+            ((got > 0.5) != (want > 0.5)).float().mean().item())
+
+
+def sam2_kv_cache_check(dev: torch.device, module, volume) -> dict[str, int]:
+    """``kv_cache``: the tracking pass of the trained SAM2 module with the
+    live Hiera-L encoder on KV_SLICES slices of the phase's tomogram, under
+    ``torch.no_grad``, uncached and then cached (``kv_cache=True``), with
+    the same weights, prompts, natural order and one cond slice. Readings:
+    max|dprob| and the share of voxels whose 0.5-mask differs between the
+    two. Limits: twice the CPU's bf16 reading (bf16 against f32, uncached)
+    of the same pass at ``SAM2Config.tiny_test()``'s widths at
+    SAM2_REF_SIDE² on KV_SLICES blob slices, or 2e-2 and 1e-3 where those
+    are larger; on the CPU in f32 the two paths must agree within 1e-4.
+    Cost: a warm-up pass of each path, then two timed passes of each in
+    turns (uncached, cached, cached, uncached): device ms (CUDA events) and
+    host wall of each, per slice, and each pass's launches per slice
+    (exactly 32/32/3 of rows 9-11 a pass, one 64-slice encoder chunk)."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.models.sam2.model import random_sam2_state_dict
+
+    name = torch.cuda.get_device_name(0)
+    x = torch.from_numpy(volume[:KV_SLICES]).to(dev)[None, ..., None]
+    module.eval()
+    runs, launches, total = {}, [], None
+    # a warm-up pass of each path, then the timed passes in turns
+    for turn, cached in enumerate((False, True, False, True, True, False)):
+        module.kv_cache = cached
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with torch.no_grad():
+            preds = module(x)["preds"].float()
+        stop.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        launches.append(counts)
+        total = counts if total is None else {k: total[k] + n for k, n in counts.items()}
+        runs[cached] = preds
+        per = {k: n / KV_SLICES for k, n in counts.items() if n}
+        log("sam2-kv", f"tracking pass {turn} ({'warm-up, ' if turn < 2 else ''}"
+            f"{'cached, kv_cache=True' if cached else 'uncached'}), 1x{KV_SLICES}x{SIDE}x{SIDE}, "
+            f"live Hiera-L, bf16: device {start.elapsed_time(stop):.2f} ms = "
+            f"{start.elapsed_time(stop) / KV_SLICES:.3f} ms/slice, host wall {wall * 1e3:.2f} ms "
+            f"= {wall * 1e3 / KV_SLICES:.3f} ms/slice; launches "
+            f"{ {k: n for k, n in counts.items() if n} } = {per} per slice ({name})")
+    module.kv_cache = False
+    gpu = _tracking_agreement(runs[True], runs[False])
+
+    # the yardstick: what bf16 moves the same pass on the CPU, at tiny widths
+    def family(dtype):
+        fam = _sam2_family(dtype, test_config=True)
+        fam.sam_cfg = dataclasses.replace(fam.sam_cfg, image_size=SAM2_REF_SIDE)
+        return fam
+
+    sd = random_sam2_state_dict(family(torch.float32).sam_cfg, torch.Generator().manual_seed(41))
+    gen = torch.Generator().manual_seed(42)
+    for k in sd:
+        if k.endswith(".w_b.weight"):
+            sd[k] = 0.02 * torch.randn(sd[k].shape, generator=gen)
+    sd["model.sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(3.0)
+    tomo, _ = blob_tomogram(np.random.default_rng(43), KV_SLICES, SAM2_REF_SIDE, unlabeled=1)
+    xc = torch.from_numpy(tomo.astype(np.float32) / 255.0)[None, ..., None]
+    cpu_runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        small = family(dtype).build_module(sd, torch.device("cpu"))
+        for cached in (False, True):
+            small.kv_cache = cached
+            with torch.no_grad():
+                cpu_runs[dtype, cached] = small(xc)["preds"].float()
+    ref = cpu_runs[torch.float32, False]
+    bf16 = _tracking_agreement(cpu_runs[torch.bfloat16, False], ref)
+    f32_cached = _tracking_agreement(cpu_runs[torch.float32, True], ref)
+    cpu_cached = _tracking_agreement(cpu_runs[torch.bfloat16, True], cpu_runs[torch.bfloat16, False])
+    limits = (max(2e-2, 2 * bf16[0]), max(1e-3, 2 * bf16[1]))
+    log("sam2-kv", f"cached vs uncached on the GPU: max|dprob| {gpu[0]:.4g}, mask agreement "
+        f"{100 * (1 - gpu[1]):.4f} % (prob std {runs[False].std().item():.3f}); limits "
+        f"{limits[0]:.4g} and {100 * limits[1]:.4f} % disagreement, from the CPU's bf16 vs f32 "
+        f"reading of the uncached pass at tiny_test widths, {KV_SLICES}x{SAM2_REF_SIDE}²: "
+        f"max|dprob| {bf16[0]:.4g}, {100 * bf16[1]:.4f} % of voxels; on the CPU cached vs "
+        f"uncached: f32 {f32_cached[0]:.3g}, bf16 {cpu_cached[0]:.4g} / {100 * cpu_cached[1]:.4f} %")
+    _report_checks({
+        f"cached vs uncached on the GPU: max|dprob| <= {limits[0]:.4g}": gpu[0] <= limits[0],
+        f"cached vs uncached on the GPU: mask disagreement <= {100 * limits[1]:.4f} %":
+            gpu[1] <= limits[1],
+        "cached vs uncached on the CPU in f32 within 1e-4": f32_cached[0] <= 1e-4,
+        f"each run launches {SAM_BATCH_LAUNCHES} and nothing else": all(
+            c == {k: SAM_BATCH_LAUNCHES.get(k, 0) for k in c} for c in launches),
+        "GPU probabilities finite": all(bool(torch.isfinite(p).all()) for p in runs.values()),
+    }, "SAM2 kv_cache")
+    return total
 
 
 # kernel-name fragments → the layer a device kernel belongs to
@@ -3420,13 +3690,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         unet = unet3d_training_phase(dev, Path(tmp))
         torch.cuda.empty_cache()
-        sam2 = sam2_training_phase(dev, Path(tmp))
+        sam2, sam2_kv = sam2_training_phase(dev, Path(tmp))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": (serving[name] + training[name] + experiment[name] + sam[name]
-                      + sam_t[name] + unet[name] + sam2[name]),
+                      + sam_t[name] + unet[name] + sam2[name] + sam2_kv[name]),
          **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
@@ -3464,6 +3734,9 @@ def main() -> int:
     for name in SAM2_STEP_NONZERO:
         next(r for r in report["kernels"] if r["name"] == name)["sam2_train"] = {
             "launches": sam2[name], "per_step": SAM2_STEP_NONZERO[name]}
+        # the kv_cache check's two tracking passes (uncached, cached)
+        next(r for r in report["kernels"] if r["name"] == name)["sam2_kv_cache"] = {
+            "launches": sam2_kv[name], "per_pass": SAM_BATCH_LAUNCHES[name], "passes": 6}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

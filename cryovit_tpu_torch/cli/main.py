@@ -10,6 +10,9 @@ labelled files → metrics CSVs) and ``infer`` (feature or voxel files →
 masks, SAM2 artifacts included, or raw tomograms → masks with ``--fused``,
 CryoVIT only).
 
+``features -v`` also writes each tomogram's DINOv2 PCA maps (PNGs under
+``<result_folder>/dino_images``), computed on the device.
+
 ``--int8`` on ``features`` (with or without ``--use-sam``) and on ``infer
 --fused`` takes the opt-in w8a8 mode: the backbone's qkv and first MLP
 projections as int8 products with per-token activation and per-channel
@@ -52,6 +55,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("tomograms", help="Folder or .txt manifest of tomograms to process.")
     p.add_argument("result_folder", help="Folder where the DINO features are saved.")
     p.add_argument("--batch-size", type=int, default=64, help="Slices per extraction step.")
+    p.add_argument("-v", "--visualize", action="store_true",
+                   help="Save PCA visualizations of DINO features (slower).")
     p.add_argument("--use-sam", action="store_true",
                    help="Extract SAM2 feature pyramids instead of DINOv2.")
     p.add_argument("--int8", action="store_true",
@@ -117,10 +122,14 @@ def main(argv: list[str] | None = None) -> int:
     from cryovit_tpu_torch.io import load_files_from_path
 
     if args.command == "features":
-        if args.use_sam:
+        if args.use_sam:  # -v draws DINOv2 maps only, as in the JAX package
             from cryovit_tpu_torch.run.sam_features import run_sam as run
+
+            extra = {}
         else:
             from cryovit_tpu_torch.run.dino_features import run_dino as run
+
+            extra = {"visualize": args.visualize}
 
         tomo_path = Path(args.tomograms)
         if not tomo_path.exists():
@@ -130,7 +139,7 @@ def main(argv: list[str] | None = None) -> int:
         run(
             load_files_from_path(tomo_path), result,
             batch_size=args.batch_size, random_init=args.random_init, device=args.device,
-            quant_int8=args.int8,
+            quant_int8=args.int8, **extra,
         )
         return 0
 

@@ -89,15 +89,17 @@ class _SAM2Forward(SAM2Model):
 def make_sam2(state_dict: dict, cfg: SAM2Config, device: torch.device | str | None = None,
               dtype: torch.dtype = torch.float32, lora_rank: int = LORA_RANK,
               lora_alpha: float = LORA_ALPHA,
-              encoder_chunk: int = 64, model_type: ModelType = ModelType.SAM2) -> _SAM2Forward:
+              encoder_chunk: int = 64, model_type: ModelType = ModelType.SAM2,
+              kv_cache: bool = False) -> _SAM2Forward:
     """The family's module with ``state_dict`` (the reference's trained
     names, loaded strictly) on ``device``: f32 parameters computing in
-    ``dtype``, the ``frozen`` group with ``requires_grad`` off. On a CUDA
-    device ``dtype`` must be bf16, the window kernels' (C3)."""
+    ``dtype``, the ``frozen`` group with ``requires_grad`` off; ``kv_cache``
+    takes the cached memory attention (``SAM2Model``). On a CUDA device
+    ``dtype`` must be bf16, the window kernels' (C3)."""
     require_bf16_on_cuda(torch.device(device or "cpu"), dtype, f"SAM2 in {dtype}",
                          "window_block_attention, window_block_mlp, window_attention")
     with torch.device("meta"):
-        module = _SAM2Forward(cfg, lora_rank, lora_alpha, dtype, encoder_chunk)
+        module = _SAM2Forward(cfg, lora_rank, lora_alpha, dtype, encoder_chunk, kv_cache)
     sd = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
           .to(device=device, dtype=torch.float32).clone() for k, v in state_dict.items()}
     module.load_state_dict(sd, strict=True, assign=True)

@@ -18,8 +18,14 @@ so ``sam2.1_hiera_large.pt`` maps tensor for tensor):
 - :func:`axial_rope`: column frequencies on the first half of the rotary
   pairs, row frequencies on the second, adjacent channels as complex pairs.
 
-The JAX package's cached cross-attention (per-slot k/v caches written once,
-``kv_cache``) is not ported: asking for it raises.
+Besides that reference-shaped path, the cached one of the JAX package's
+``kv_cache``: :meth:`MemoryAttention.project_memory` / ``project_ptr`` turn
+one newly written memory slot into every layer's cross k/v entries once, at
+write time, and :meth:`MemoryAttention.cached` attends to those entries per
+slice, adding the position terms (``rope(W_k·grid_pe + b_k)``, a
+recency-indexed ``rope(W_k·tpos)`` table, the pointers' ``W_k·pe + b_k``)
+that depend only on parameters. The k/v projections and RoPE are linear, so
+both paths compute the same attention.
 """
 
 from __future__ import annotations
@@ -176,21 +182,67 @@ class _MemAttnLayer(nn.Module):
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         return t.reshape(t.shape[0], t.shape[1], self.num_heads, -1)
 
-    def forward(self, x, mem, mem_pos, mem_mask, n_rope_k: int):
-        sa, ca = self.self_attn, self.cross_attn_image
+    def _self_attend(self, x):
+        sa = self.self_attn
         y = self.norm1(x)
         q = axial_rope(self._heads(sa.q_proj(y)), self.grid)
         k = axial_rope(self._heads(sa.k_proj(y)), self.grid)
-        x = x + sa.out_proj(_attend(q, k, self._heads(sa.v_proj(y)), None))
+        return x + sa.out_proj(_attend(q, k, self._heads(sa.v_proj(y)), None))
 
-        y = self.norm2(x)
-        q = axial_rope(self._heads(ca.q_proj(y)), self.grid)
+    def _cross_attend(self, x, k, v, mask):
+        """Cross-attention to memory heads ``k``/``v``, then the MLP."""
+        ca = self.cross_attn_image
+        q = axial_rope(self._heads(ca.q_proj(self.norm2(x))), self.grid)
+        x = x + ca.out_proj(_attend(q, k, v, mask))
+        return x + self.linear2(F.relu(self.linear1(self.norm3(x))))
+
+    def forward(self, x, mem, mem_pos, mem_mask, n_rope_k: int):
+        ca = self.cross_attn_image
+        x = self._self_attend(x)
         k = self._heads(ca.k_proj(mem + mem_pos))
-        v = self._heads(ca.v_proj(mem))
         k_sp = axial_rope(k[:, :n_rope_k], self.grid, repeat=n_rope_k // x.shape[1])
         k = torch.cat([k_sp, k[:, n_rope_k:]], dim=1)
-        x = x + ca.out_proj(_attend(q, k, v, mem_mask))
-        return x + self.linear2(F.relu(self.linear1(self.norm3(x))))
+        return self._cross_attend(x, k, self._heads(ca.v_proj(mem)), mem_mask)
+
+    # ---- the cached path ------------------------------------------------
+
+    def _k_no_bias(self, t):
+        return F.linear(t, cast(self.cross_attn_image.k_proj.weight, t))
+
+    def project_spatial(self, mem):
+        """A written slot ``(B, e², mem_dim)`` → this layer's cache entries:
+        ``k = rope(W_k·mem)`` (bias-free: the bias rides the grid term, so it
+        is added once) and ``v = W_v·mem + b_v`` (v never sees position)."""
+        k = axial_rope(self._heads(self._k_no_bias(mem)), self.grid)
+        return k.flatten(2), self.cross_attn_image.v_proj(mem)
+
+    def project_ptr(self, tok):
+        """Pointer tokens ``(B, ratio, mem_dim)`` → bias-free ``W_k·tok`` and
+        ``W_v·tok + b_v`` (no RoPE on pointer tokens)."""
+        return self._k_no_bias(tok), self.cross_attn_image.v_proj(tok)
+
+    def static_keys(self, grid_pe, tpos):
+        """The parameter-only key terms: ``rope(W_k·grid_pe + b_k)`` ``(e²,
+        d)`` and, per ``maskmem_tpos_enc`` row, ``rope(W_k·tpos[r])`` over the
+        grid ``(T, e², d)``."""
+        e2 = grid_pe.shape[0]
+        base = axial_rope(self._heads(self.cross_attn_image.k_proj(grid_pe)[None]), self.grid)
+        tk = self._k_no_bias(tpos)[:, None, :].expand(-1, e2, -1)
+        return base.flatten(2)[0], axial_rope(self._heads(tk), self.grid).flatten(2)
+
+    def cached(self, x, k_sp, v_sp, k_pt, v_pt, recency, ptr_pe, static):
+        """Cross-attention from cache entries: ``k_sp``/``v_sp (B, M, e², d)``
+        of the M valid slots, ``k_pt``/``v_pt (B, P, ratio, d)`` of the P
+        valid pointers, each slot's ``recency`` row, the pointers'
+        temporal code ``ptr_pe (P, mem_dim)`` and :meth:`static_keys`."""
+        base, tpos_k = static
+        b, m, e2, d = k_sp.shape
+        x = self._self_attend(x)
+        k_spatial = k_sp + base + torch.stack([tpos_k[r] for r in recency])
+        k_ptr = k_pt + self.cross_attn_image.k_proj(ptr_pe)[None, :, None, :]
+        k = torch.cat([k_spatial.reshape(b, m * e2, d), k_ptr.reshape(b, -1, d)], dim=1)
+        v = torch.cat([v_sp.reshape(b, m * e2, d), v_pt.reshape(b, -1, d)], dim=1)
+        return self._cross_attend(x, self._heads(k), self._heads(v), None)
 
 
 class MemoryAttention(nn.Module):
@@ -209,19 +261,52 @@ class MemoryAttention(nn.Module):
         )
         self.norm = LayerNorm(cfg.d_model, eps=1e-5)
 
-    def forward(self, feats, curr_pos, mem_tokens, mem_pos, mem_mask=None, n_rope_k=None,
-                kv_cache=None):
-        if kv_cache is not None:
-            raise NotImplementedError(
-                "the cached memory-attention path (kv_cache) is not ported; the "
-                "tracking loop projects the whole bank per slice"
-            )
+    def _input(self, feats, curr_pos):
+        b, e, _, d = feats.shape
+        return (feats.reshape(b, e * e, d) + 0.1 * curr_pos.reshape(-1, e * e, d)).to(self.dtype)
+
+    def forward(self, feats, curr_pos, mem_tokens, mem_pos, mem_mask=None, n_rope_k=None):
         dt = self.dtype
         b, e, _, d = feats.shape
-        x = (feats.reshape(b, e * e, d) + 0.1 * curr_pos.reshape(-1, e * e, d)).to(dt)
+        x = self._input(feats, curr_pos)
         if n_rope_k is None:
             n_rope_k = mem_tokens.shape[1]
         mem, pos = mem_tokens.to(dt), mem_pos.to(dt)
         for layer in self.layers:
             x = layer(x, mem, pos, mem_mask, n_rope_k)
+        return self.norm(x).reshape(b, e, e, d)
+
+    # ---- the cached path (kv_cache) ---------------------------------------
+
+    def project_memory(self, mem: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """A written slot ``(B, e², mem_dim)`` → every layer's cache entries
+        ``k, v (B, e², L·d)`` (layer l on channels ``[l·d, (l+1)·d)``)."""
+        mem = mem.to(self.dtype)
+        ks, vs = zip(*(layer.project_spatial(mem) for layer in self.layers))
+        return torch.cat(ks, dim=-1), torch.cat(vs, dim=-1)
+
+    def project_ptr(self, tok: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Pointer tokens ``(B, ratio, mem_dim)`` → ``k, v (B, ratio, L·d)``."""
+        tok = tok.to(self.dtype)
+        ks, vs = zip(*(layer.project_ptr(tok) for layer in self.layers))
+        return torch.cat(ks, dim=-1), torch.cat(vs, dim=-1)
+
+    def static_keys(self, grid_pe: torch.Tensor, tpos: torch.Tensor) -> list:
+        """Per layer its parameter-only key terms (``_MemAttnLayer.static_keys``)
+        of the grid's sine code ``(e², mem_dim)`` and ``maskmem_tpos_enc``
+        ``(T, mem_dim)``; made once per tracking pass."""
+        grid_pe, tpos = grid_pe.to(self.dtype), tpos.to(self.dtype)
+        return [layer.static_keys(grid_pe, tpos) for layer in self.layers]
+
+    def cached(self, feats, curr_pos, k_sp, v_sp, k_pt, v_pt, recency, ptr_pe, static):
+        """Memory-conditioned features from the cache entries: ``k_sp``/``v_sp
+        (B, M, e², L·d)``, ``k_pt``/``v_pt (B, P, ratio, L·d)``, ``recency``
+        (M ints), ``ptr_pe (P, mem_dim)``, ``static`` from :meth:`static_keys`."""
+        b, e, _, d = feats.shape
+        x = self._input(feats, curr_pos)
+        ptr_pe = ptr_pe.to(self.dtype)
+        for i, layer in enumerate(self.layers):
+            sl = slice(i * d, (i + 1) * d)
+            x = layer.cached(x, k_sp[..., sl], v_sp[..., sl], k_pt[..., sl], v_pt[..., sl],
+                             recency, ptr_pe, static[i])
         return self.norm(x).reshape(b, e, e, d)

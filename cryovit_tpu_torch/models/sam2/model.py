@@ -20,6 +20,13 @@ between slices: the loss of a later slice reaches the LoRA factors and the
 prompt predictor through the memories it read, as in the JAX package,
 which differentiates through the scan.
 
+``kv_cache=True`` (off by default, as in the JAX package) takes the cached
+memory attention: each written slot is projected through every layer's
+cross k/v once, at write time, and kept in the bank beside the memory; a
+slice then attends to those entries plus the parameter-only position terms
+instead of re-projecting every valid slot. The projections and RoPE are
+linear, so both give the same features.
+
 The image encoder is frozen: it runs in ``encoder_chunk``-slice chunks
 under ``torch.no_grad`` on a compute copy (RGB replication folded into the
 patch embed, qkv scales folded for the kernels, weights in the compute
@@ -62,16 +69,26 @@ class MemoryBank:
     """Tracking state: ``spatial[slot]`` is a written memory ``(B, e·e,
     mem_dim)`` or None; ``obj_ptrs[slot]`` a pointer ``(B, d_model)`` or
     None. Slots ``[0, max_cond_slices)`` hold conditioning memories, the
-    rest the rolling ring. ``write_idx`` counts non-cond writes + 1."""
+    rest the rolling ring. ``write_idx`` counts non-cond writes + 1. With
+    ``kv_cache``, ``k_sp``/``v_sp[slot]`` hold the slot's cross k/v entries
+    ``(B, e·e, L·d_model)`` and ``k_pt``/``v_pt[slot]`` the pointer's
+    ``(B, d_model/mem_dim, L·d_model)`` (``MemoryAttention.project_memory``
+    / ``project_ptr``); otherwise they are None."""
 
     spatial: list
     obj_ptrs: list
     write_idx: int = 1
     cond_count: int = 0
+    k_sp: list | None = None
+    v_sp: list | None = None
+    k_pt: list | None = None
+    v_pt: list | None = None
 
     @classmethod
-    def empty(cls, cfg: SAM2Config) -> "MemoryBank":
-        return cls([None] * (cfg.max_cond_slices + cfg.num_maskmem - 1), [None] * cfg.max_obj_ptrs)
+    def empty(cls, cfg: SAM2Config, kv_cache: bool = False) -> "MemoryBank":
+        n, p = cfg.max_cond_slices + cfg.num_maskmem - 1, cfg.max_obj_ptrs
+        caches = dict(k_sp=[None] * n, v_sp=[None] * n, k_pt=[None] * p, v_pt=[None] * p)
+        return cls([None] * n, [None] * p, **(caches if kv_cache else {}))
 
     @property
     def spatial_valid(self) -> list[bool]:
@@ -108,14 +125,15 @@ class SAM2Model(nn.Module):
     ``backbone`` is a cached pyramid ``{"backbone_fpn", "vision_pos_enc"}``
     of flat ``(B·D, h, w, C)`` levels (the live encoder runs otherwise);
     ``order`` the processing order with the cond slices first, ``num_cond``
-    how many of them are cond slices (defaults: natural order, one)."""
+    how many of them are cond slices (defaults: natural order, one).
+    ``kv_cache`` takes the cached memory attention (see above)."""
 
     def __init__(self, cfg: SAM2Config | None = None, lora_rank: int = 128,
                  lora_alpha: float = 128.0, dtype: torch.dtype = torch.float32,
-                 encoder_chunk: int = 64):
+                 encoder_chunk: int = 64, kv_cache: bool = False):
         super().__init__()
         self.cfg = cfg = cfg or SAM2Config.large()
-        self.dtype, self.encoder_chunk = dtype, encoder_chunk
+        self.dtype, self.encoder_chunk, self.kv_cache = dtype, encoder_chunk, kv_cache
         self.model = _SAM2Base(cfg, lora_rank, lora_alpha, dtype)
         self.prompt_predictor = PromptPredictor(in_channels=cfg.d_model, dtype=dtype)
         self._encoder_copy: dict = {}
@@ -172,18 +190,22 @@ class SAM2Model(nn.Module):
         with ``add_tpos_enc_to_obj_ptrs``, each pointer distance's projected
         temporal sine code ``(max_obj_ptrs, mem_dim)`` (a pointer slot's
         distance is below ``max_obj_ptrs``), else None; the prompt encoder's
-        dense code of the image grid ``(e, e, d)`` f32."""
+        dense code of the image grid ``(e, e, d)`` f32; with ``kv_cache`` the
+        memory attention's parameter-only key terms, else None."""
         cfg, m = self.cfg, self.model
         e, md = cfg.embed_size, cfg.mem_dim
         device = m.no_mem_embed.device
         grid = torch.from_numpy(sine_position_encoding(e, e, md).copy()).to(device, dtype)
+        grid = grid.reshape(e * e, md)
         image_pe = m.sam_prompt_encoder.dense_pe()
+        static = (m.memory_attention.static_keys(grid, m.maskmem_tpos_enc.reshape(-1, md))
+                  if self.kv_cache else None)
         if not cfg.add_tpos_enc_to_obj_ptrs:
-            return grid.reshape(e * e, md), None, image_pe
+            return grid, None, image_pe, static
         dist = torch.arange(cfg.max_obj_ptrs, dtype=torch.float32, device=device)
         ptr_pe = m.obj_ptr_tpos_proj(
             sine_pe_1d(dist / max(cfg.max_obj_ptrs - 1, 1), cfg.d_model).to(self.dtype))
-        return grid.reshape(e * e, md), ptr_pe.to(dtype), image_pe
+        return grid, ptr_pe.to(dtype), image_pe, static
 
     def _memory_tokens(self, bank: MemoryBank, tables):
         """The valid slots as ``(B, M, mem_dim)`` tokens, their position
@@ -191,7 +213,7 @@ class SAM2Model(nn.Module):
         projected temporal sine code) and the spatial token count."""
         cfg, m = self.cfg, self.model
         md = cfg.mem_dim
-        grid_pe, ptr_pe, _ = tables
+        grid_pe, ptr_pe = tables[:2]
         recency, pdist = self._recency(bank)
         tpos = m.maskmem_tpos_enc.reshape(cfg.num_maskmem, md).to(grid_pe.dtype)
         slots = [i for i, s in enumerate(bank.spatial) if s is not None]
@@ -213,8 +235,27 @@ class SAM2Model(nn.Module):
         for cond slices and while the bank is empty."""
         if not (use_memory and any(bank.spatial_valid)):
             return feats + self.model.no_mem_embed.reshape(1, 1, 1, -1).to(feats.dtype)
+        if bank.k_sp is not None:
+            return self._condition_cached(feats, pos, bank, tables)
         tokens, mem_pos, n_rope_k = self._memory_tokens(bank, tables)
         return self.model.memory_attention(feats, pos, tokens, mem_pos, None, n_rope_k)
+
+    def _condition_cached(self, feats, pos, bank: MemoryBank, tables):
+        """The cached path: the valid slots' cache entries, their recency
+        rows and the valid pointers' temporal codes (zeros without
+        ``add_tpos_enc_to_obj_ptrs``)."""
+        grid_pe, ptr_pe, _, static = tables
+        recency, pdist = self._recency(bank)
+        slots = [i for i, s in enumerate(bank.spatial) if s is not None]
+        ptrs = [p for p, t in enumerate(bank.obj_ptrs) if t is not None]
+        pe = (torch.stack([ptr_pe[pdist[p]] for p in ptrs]) if ptr_pe is not None
+              else grid_pe.new_zeros(len(ptrs), grid_pe.shape[1]))
+        return self.model.memory_attention.cached(
+            feats, pos, torch.stack([bank.k_sp[i] for i in slots], dim=1),
+            torch.stack([bank.v_sp[i] for i in slots], dim=1),
+            torch.stack([bank.k_pt[p] for p in ptrs], dim=1),
+            torch.stack([bank.v_pt[p] for p in ptrs], dim=1),
+            [recency[i] for i in slots], pe, static)
 
     def _encode_prompts(self, boxes: torch.Tensor, prompts: torch.Tensor):
         """Prompt encoding for all slices at once: boxes ``(B, D, 4)`` in
@@ -267,8 +308,16 @@ class SAM2Model(nn.Module):
             pslot = mc + (bank.write_idx - 1) % (cfg.max_obj_ptrs - mc)
         spatial, ptrs = list(bank.spatial), list(bank.obj_ptrs)
         spatial[slot], ptrs[pslot] = mem, obj_ptr
+        caches = {}
+        if bank.k_sp is not None:
+            # the written slot through every layer's cross k/v, once
+            ma = self.model.memory_attention
+            caches = {name: list(getattr(bank, name)) for name in ("k_sp", "v_sp", "k_pt", "v_pt")}
+            caches["k_sp"][slot], caches["v_sp"][slot] = ma.project_memory(mem)
+            caches["k_pt"][pslot], caches["v_pt"][pslot] = ma.project_ptr(
+                obj_ptr.reshape(obj_ptr.shape[0], -1, cfg.mem_dim))
         return MemoryBank(spatial, ptrs, bank.write_idx + (0 if is_cond else 1),
-                          bank.cond_count + (1 if is_cond else 0))
+                          bank.cond_count + (1 if is_cond else 0), **caches)
 
     def _slice_step(self, bank: MemoryBank, feat, pos, s0, s1, sparse, dense, is_cond: bool,
                     tables):
@@ -305,7 +354,7 @@ class SAM2Model(nn.Module):
         boxes, prompts = boxes.reshape(b, d, 4), prompts.reshape(b, d, s, s)
         sparse, dense = self._encode_prompts(boxes, prompts)
 
-        bank = MemoryBank.empty(cfg)
+        bank = MemoryBank.empty(cfg, self.kv_cache)
         tables = self._position_tables(self.model.memory_encoder.dtype)
         lows: list = [None] * d
         for t, i in enumerate(order):

@@ -147,10 +147,10 @@ class DinoExtractor:
         self.device = model.pos_embed.device
 
     @torch.inference_mode()
-    def extract(self, stack: np.ndarray | torch.Tensor) -> np.ndarray:
-        """``(D, H, W)`` padded-to-16 slice stack → ``(C, D, gh, gw)`` fp16.
-        f32 input is taken as already normalized; uint8 transfers raw and is
-        scaled to [0, 1] on the device."""
+    def extract_device(self, stack: np.ndarray | torch.Tensor) -> torch.Tensor:
+        """``(D, H, W)`` padded-to-16 slice stack → ``(C, D, gh, gw)`` fp16 on
+        the device. f32 input is taken as already normalized; uint8
+        transfers raw and is scaled to [0, 1] on the device."""
         stack = torch.as_tensor(stack)
         d = stack.shape[0]
         gh, gw = dino_grid_shape(*stack.shape[-2:])
@@ -159,7 +159,11 @@ class DinoExtractor:
              for b in stack.split(self.batch_size)]
         )  # (D, gh·gw, C)
         # (C, D, gh, gw) laid out on the device: one transfer, no host transpose
-        return feats.permute(2, 0, 1).reshape(-1, d, gh, gw).contiguous().cpu().numpy()
+        return feats.permute(2, 0, 1).reshape(-1, d, gh, gw).contiguous()
+
+    def extract(self, stack: np.ndarray | torch.Tensor) -> np.ndarray:
+        """:meth:`extract_device`'s features copied to the host."""
+        return self.extract_device(stack).cpu().numpy()
 
 
 def save_feature_hdf(
@@ -195,17 +199,36 @@ def save_feature_hdf(
     return path
 
 
+def _extract(extractor: DinoExtractor, stack: np.ndarray, volume: np.ndarray, name: str,
+             image_dir: Path | None) -> np.ndarray:
+    """The stack's features on the host; with ``image_dir``, first the PCA
+    maps of ``volume`` and the features while they are on the device
+    (``image_dir/name/<z>.png``)."""
+    if image_dir is None:
+        return extractor.extract(stack)
+    from cryovit_tpu_torch.visualization.dino_pca import export_pca
+
+    feats = extractor.extract_device(stack)
+    export_pca(volume, feats, name, image_dir)
+    return feats.cpu().numpy()
+
+
 def extract_features(
-    train_data: list[Path], extractor: DinoExtractor
+    train_data: list[Path], extractor: DinoExtractor, visualize: Path | None = None
 ) -> Iterator[tuple[Path, np.ndarray, np.ndarray]]:
     """For each tomogram file: ``(path, volume, features)``, where volume is
     the normalized ``(D, H, W)`` f32 data and features the
     ``(C, D, H16/16, W16/16)`` fp16 extraction of its padded slices. The
-    step :func:`run_dino` runs below its HDF5 writer."""
+    step :func:`run_dino` runs below its HDF5 writer. With ``visualize``,
+    each file's PCA maps go to ``visualize/<stem>/<stem>/<z>.png``, the JAX
+    package's layout."""
     for path in train_data:
-        data, _ = load_data(Path(path))
+        path = Path(path)
+        data, _ = load_data(path)
         volume = data[0]
-        yield Path(path), volume, extractor.extract(pad_slices_to_multiple(volume))
+        image_dir = None if visualize is None else Path(visualize) / path.stem
+        yield path, volume, _extract(extractor, pad_slices_to_multiple(volume), volume,
+                                     path.stem, image_dir)
 
 
 def run_dino(
@@ -218,16 +241,20 @@ def run_dino(
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
     quant_int8: bool = False,
+    visualize: bool = False,
 ) -> list[Path]:
     """Extract features for explicit tomogram files →
     ``result_dir/<stem>.hdf`` (reference ``run_dino:210-298``);
-    ``quant_int8`` takes the opt-in w8a8 mode."""
+    ``quant_int8`` takes the opt-in w8a8 mode; ``visualize`` (``features
+    -v``) also writes each file's PCA maps under ``result_dir/dino_images``,
+    computed on the device."""
     if not train_data:
         raise ValueError("No valid tomogram files found.")
     model = load_extractor(model_dir, random_init, dino_cfg, device, dtype, quant_int8)
     extractor = DinoExtractor(model, batch_size=batch_size)
+    image_dir = Path(result_dir) / "dino_images" if visualize else None
     written = []
-    for path, volume, features in extract_features(train_data, extractor):
+    for path, volume, features in extract_features(train_data, extractor, image_dir):
         out_path = save_feature_hdf(
             {"data": volume}, features, f"{path.stem}.hdf", Path(result_dir)
         )
@@ -289,18 +316,14 @@ def run_trainer(
     src = ``data_dir/<feature_name>/<sample>`` (annotated tomograms), dst =
     ``data_dir/<tomo_name>/<sample>`` (training-ready files). ``random_init``
     draws seeded weights; ``quant_int8`` takes the w8a8 mode
-    (``features --int8``). ``export_features`` (the PCA images) raises
-    until visualization is ported (ROADMAP A7). Runs on the GPU unless
-    ``device`` names the CPU."""
+    (``features --int8``); ``export_features`` writes each tomogram's PCA
+    maps, computed on the device, to ``exp_dir/dino_images/<sample>/<stem>``.
+    Runs on the GPU unless ``device`` names the CPU."""
     from cryovit_tpu_torch.run.common import pipeline_io
 
     validate_dino_config(cfg)
-    if cfg.get("export_features"):
-        raise NotImplementedError(
-            "export_features=True writes DINOv2 PCA images, which come with the port of "
-            "visualization (ROADMAP A7); run with export_features=false"
-        )
     device = resolve_device(device)
+    image_dir = Path(cfg.paths.exp_dir) / "dino_images" if cfg.get("export_features") else None
     dst_dir = Path(cfg.paths.data_dir) / cfg.paths.tomo_name
     model = load_extractor(cfg.model_dir, bool(cfg.get("random_init", False)), dino_cfg, device,
                            quant_int8=bool(cfg.get("quant_int8", False)))
@@ -311,11 +334,13 @@ def run_trainer(
         def read(i, _names=names, _dir=tomo_dir):
             return _read_source(_dir / _names[i])
 
-        def compute(i, source):
+        def compute(i, source, _names=names, _sample=sample):
             data = source["data"]
             # uint8 stays uint8: the extractor scales it on the device
             stack = data if data.dtype == np.uint8 else data.astype(np.float32)
-            return source, extractor.extract(pad_slices_to_multiple(stack))
+            return source, _extract(extractor, pad_slices_to_multiple(stack), data,
+                                    Path(_names[i]).stem,
+                                    None if image_dir is None else image_dir / _sample)
 
         def write(i, result, _names=names, _sample=sample):
             source, features = result

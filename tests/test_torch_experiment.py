@@ -19,7 +19,7 @@
   bit for bit, features within test_torch_slice.py's f32 atol 1e-3, and
   under ``quant_int8`` within test_torch_w8a8.py's DINO_LIMIT; the
   ``sam_features`` sweep writes ``SamFeatureExtractor``'s pyramids;
-  ``export_features`` is refused (ROADMAP A7).
+  ``export_features`` writes the PCA maps.
 """
 
 import csv
@@ -569,11 +569,19 @@ def test_sam_sweep_writes_the_extractor_pyramids(sweep_env, tmp_path):
             np.testing.assert_array_equal(got[f"sam_features/{key}/{i}"], level)
 
 
-def test_export_features_is_refused_until_visualization_is_ported(sweep_env):
-    cfg = compose("dino_features", _sweep_overrides(sweep_env, "never", "export_features=true"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        dino_features.run_trainer(cfg, device="cpu")
-    assert not (sweep_env[0] / "never").exists()
+def test_export_features_is_refused_until_visualization_is_ported(sweep_env, tmp_path):
+    """Visualization is ported: ``export_features=true`` is no longer
+    refused and writes each tomogram's PCA maps (slice 0 of the depth-3
+    volumes) under ``exp_dir/dino_images/<sample>/<stem>``, beside the
+    training-ready files (the PNGs against the JAX package's:
+    ``tests/test_torch_visualization.py``)."""
+    cfg = compose("dino_features", _sweep_overrides(sweep_env, "exported", "export_features=true",
+                                                    "+random_init=true", f"paths.exp_dir={tmp_path}"))
+    dino_features.run_trainer(cfg, dino_cfg=DinoV2Config.tiny_test(), device="cpu")
+    images = tmp_path / "dino_images"
+    assert sorted(str(p.relative_to(images)) for p in images.rglob("*.png")) == [
+        "AD/a/0.png", "AD/b/0.png", "Young/t0/0.png"]
+    assert len(list((sweep_env[0] / "exported").rglob("*.hdf"))) == 3
 
 
 def test_pipeline_io_keeps_order_and_overlaps():

@@ -34,7 +34,8 @@ def test_port_imports_no_jax_flax_or_h5py():
     """Every module of the port, the experiment mode's composer, datamodules
     and ``training`` entry points among them, imports in a fresh interpreter
     (this test process has jax loaded through conftest.py) without pulling
-    in jax, flax, h5py, pyyaml, pandas, sklearn, wandb or the JAX package."""
+    in jax, flax, h5py, pyyaml, pandas, sklearn, wandb, the plotting stack
+    (matplotlib, seaborn, cv2, PIL, umap) or the JAX package."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -44,7 +45,8 @@ def test_port_imports_no_jax_flax_or_h5py():
             importlib.import_module(name)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "flax", "h5py", "cryovit_tpu", "yaml",
-                                               "pandas", "sklearn", "wandb"))
+                                               "pandas", "sklearn", "wandb", "matplotlib",
+                                               "seaborn", "cv2", "PIL", "umap"))
         print(len(names), loaded, sorted(n for n in names if ".training." in n
                                          or n.endswith((".composer", ".datamodules"))))
         """
@@ -92,6 +94,40 @@ def test_experiment_mode_runs_without_yaml_pandas_sklearn_h5py_or_jax(tmp_path):
     assert len(lines) == 1 + 3 * 10 * 2
     assert lines[1] == ("0 ['datamodule.sample=CZI_Campy_C', 'datamodule.split_id=0', "
                         "'model=cryovit']")
+
+
+def test_visualization_runs_without_the_plotting_stack(tmp_path):
+    """A GPU host without the plotting stack: with PIL, matplotlib, seaborn,
+    cv2, umap, sklearn, pandas, h5py and jax made unimportable,
+    ``export_pca`` writes its PNGs, and ``process_experiment`` (the overlay
+    videos) raises an ImportError that names cv2 rather than returning."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for name in ("PIL", "matplotlib", "seaborn", "cv2", "umap", "sklearn", "pandas",
+                     "h5py", "jax", "flax", "cryovit_tpu"):
+            sys.modules[name] = None
+        import numpy as np
+        from cryovit_tpu_torch.visualization import export_pca, process_experiment
+        from cryovit_tpu_torch.visualization._image import read_png
+        rng = np.random.default_rng(0)
+        paths = export_pca(rng.random((12, 32, 48)).astype(np.float32),
+                           rng.standard_normal((16, 12, 2, 3)).astype(np.float16),
+                           "t", r"{tmp_path}")
+        print([p.name for p in paths], read_png(paths[0]).shape)
+        try:
+            process_experiment(r"{tmp_path}", r"{tmp_path / 'videos'}")
+        except ImportError as e:
+            print("ImportError:", e)
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert lines[0] == "['0.png', '10.png'] (32, 96, 3)", lines
+    assert lines[1].startswith("ImportError: cv2 is not installed"), lines
+    assert not (tmp_path / "videos").exists()
 
 
 def test_kernel_loader_names_nvcc_when_the_toolkit_is_missing(monkeypatch, tmp_path):

@@ -170,8 +170,6 @@ def test_memory_attention_matches_jax(models):
     got = port.model.memory_attention(_t(feats), _t(pos), _t(mem), _t(mem_pos),
                                       torch.from_numpy(mask), 2 * e2)
     assert_close(got, want)
-    with pytest.raises(NotImplementedError, match="kv_cache"):
-        port.model.memory_attention(_t(feats), _t(pos), _t(mem), _t(mem_pos), kv_cache=True)
 
 
 @pytest.mark.parametrize("repeat", [1, 3])
