@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parallel-limits   # only the parallel limits' readings
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -173,6 +174,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    uncached and cached: max|dprob| and mask agreement against limits twice
    the CPU's bf16 reading of the same pass at tiny_test widths, device ms
    and host wall per slice, and exactly 32/32/3 launches each.
+13. parallel — ``cryovit_tpu_torch.parallel`` on the card: 2 ranks spawned
+   on the one card (``torch.multiprocessing``, kernels built by the parent
+   first), joined by an explicit gloo group (NCCL refuses two ranks on one
+   device; gloo's ``all_reduce`` and ``broadcast`` take CUDA tensors
+   through the host, so the times say nothing of NCCL scaling). Each rank
+   against the single process on the same card (run first): the
+   data-parallel CryoVIT train step at full width (two crops of the
+   training cell's 128 × 32×32 patches of 1536 features, one a rank), the
+   depth-sharded step (one crop, 64 slices a rank: halo exchanges, global
+   GroupNorm statistics) and the sharded DINOv2 extraction of the serving
+   tomogram (32 slices a rank, features gathered): the Dice loss, the worst
+   and the median gradient and the worst parameter update after the step
+   within limits set from this comparison's own readings over five seeds
+   (``python3 chip_smoke.py --parallel-limits`` prints them), the features
+   within the serving reference's 2e-2 (relative L2), the ranks'
+   parameters bit for bit equal; four planted faults (gradients averaged
+   instead of summed, zero halos, GroupNorm statistics over each slab
+   alone, features gathered into the other rank's slot) must read above
+   those limits.
+   Launches per rank (exactly 12/6/2/2 of rows 4-7 a step, 40 of row 1 an
+   extraction), ms per step, peak GiB per rank against the single process.
 
 Launch counters are zeroed just before each main path and read just after;
 every kernel of a path must have run (the SAM path: exactly the counts the
@@ -1375,16 +1397,24 @@ def train_reference_phase(dev: torch.device) -> None:
         raise AssertionError(f"gradient of {worst_name} disagrees: relative error {worst}")
 
 
-def _worst_gradient(got: dict, want: dict) -> tuple[float, str]:
-    """The largest relative L2 error of a parameter's gradient, and its
-    name: against the reference gradient's norm, or against the largest
-    gradient norm for a tensor whose reference norm is below 1e-3 of it (a
-    conv bias before a norm, whose gradient is zero up to rounding)."""
+def _gradient_errors(got: dict, want: dict) -> dict[str, float]:
+    """Each parameter's relative L2 gradient error: against the reference
+    gradient's norm, or against the largest gradient norm for a tensor
+    whose reference norm is below 1e-3 of it (a conv bias before a norm,
+    whose gradient is zero up to rounding)."""
     largest = max(g.norm().item() for g in want.values())
-    worst, worst_name = 0.0, ""
+    out = {}
     for name, w in want.items():
         norm = w.norm().item()
-        rel = (got[name] - w).norm().item() / (norm if norm >= 1e-3 * largest else largest)
+        out[name] = (got[name] - w).norm().item() / (norm if norm >= 1e-3 * largest else largest)
+    return out
+
+
+def _worst_gradient(got: dict, want: dict) -> tuple[float, str]:
+    """The largest relative L2 error of a parameter's gradient
+    (_gradient_errors), and its name."""
+    worst, worst_name = 0.0, ""
+    for name, rel in _gradient_errors(got, want).items():
         if rel > worst:
             worst, worst_name = rel, name
     return worst, worst_name
@@ -3569,6 +3599,464 @@ def sam2_kv_cache_check(dev: torch.device, module, volume) -> dict[str, int]:
 
 
 # kernel-name fragments → the layer a device kernel belongs to
+# ---- parallelism: ranks on the one card -----------------------------------------
+
+# the parallel phase: PARALLEL_WORLD ranks on the one card, joined by a gloo
+# group (NCCL refuses two ranks on one device); the crops of the training
+# cell drawn from PARALLEL_SEED on the card, the decoder's weights from it
+# on the host (mask head scaled as in the train reference)
+PARALLEL_WORLD = 2
+PARALLEL_SEED = 23
+PARALLEL_TIMED = 3
+# limits against the single process on the card, each the geometric mean
+# of the largest sound reading and the smallest reading of the planted
+# faults it separates, over PARALLEL_LIMIT_SEEDS (`--parallel-limits`; NVIDIA
+# H100 80GB HBM3, 700.00 W): |Δ Dice loss| 2.62e-6 vs zero halos 1.17e-4;
+# the worst gradient by _worst_gradient's rule 0.0398 vs averaged 0.5003;
+# the median gradient by the same rule 2.21e-3 vs local norms 9.00e-3 (the
+# worst leaf, bf16 noise of the 1536->1024 projection, cannot tell that
+# fault, 0.096, from sound); the worst update (_update_error) 1.45e-3 vs
+# zero halos 0.832. The features' relative L2: the serving reference's
+# bf16 limit (the sharded extraction reads 0, bit for bit)
+PARALLEL_LOSS, PARALLEL_GRAD, PARALLEL_GRAD_MEDIAN, PARALLEL_UPDATE = 1.7e-5, 0.14, 4.5e-3, 0.035
+PARALLEL_FEATURES = 2e-2
+PARALLEL_FAULTS = {
+    "averaged": "gradients averaged over the ranks instead of summed",
+    "zero halos": "every halo of the depth-dilated convs zero",
+    "local norms": "GroupNorm's statistics over each rank's own slab",
+    "swapped slots": "each rank's features gathered into the other rank's slot",
+}
+# `chip_smoke.py --parallel-limits`: the seeds whose sound and faulty
+# readings the limits above are set between
+PARALLEL_LIMIT_SEEDS = (23, 24, 25, 26, 27)
+
+
+def _parallel_crops(dev: torch.device, seed: int = PARALLEL_SEED):
+    """Two crops of the training cell, as host arrays: TRAIN_DEPTH slices of
+    32x32 patches of 1536 features (fp16 values, f32 as the loader gives
+    them) and their TRAIN_DEPTH x SIDE² labels (p 0.3, the first 16 slices
+    unlabeled), drawn from ``seed`` on the card."""
+    import numpy as np
+
+    from cryovit_tpu_torch.types import TomogramBatch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grid = SIDE // 16
+    feats = torch.randn((2, TRAIN_DEPTH, grid, grid, 1536), generator=g, device=dev)
+    label = (torch.rand((2, TRAIN_DEPTH, SIDE, SIDE), generator=g, device=dev) < 0.3)
+    label = label.to(torch.int8)
+    label[:, :16] = -1
+    batch = TomogramBatch(feats.half().float().cpu().numpy(), label.cpu().numpy(),
+                          np.full((2,), TRAIN_DEPTH))
+    del feats, label
+    return batch
+
+
+def _parallel_stack():
+    """The serving phase's 64x512x512 uint8 tomogram (the same seed)."""
+    import numpy as np
+
+    return np.random.default_rng(0).integers(0, 256, size=(DEPTH, SIDE, SIDE), dtype=np.uint8)
+
+
+@contextlib.contextmanager
+def _planted(fault: str | None):
+    """One of PARALLEL_FAULTS planted into the port for the block's extent."""
+    from cryovit_tpu_torch.models import cryovit
+    from cryovit_tpu_torch.parallel.mesh import Mesh
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    saved = (Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm)
+    if fault == "averaged":
+        def averaged(self, sharding):
+            saved[0](self, sharding)
+            for p in self.module.parameters():
+                if p.grad is not None:
+                    p.grad.div_(sharding.mesh.size)
+        Trainer._reduce_gradients = averaged
+    elif fault == "zero halos":
+        def zero_halos(x, mesh, dim, d):
+            shape = list(x.shape)
+            shape[dim] = d
+            return torch.cat([x.new_zeros(shape), x, x.new_zeros(shape)], dim)
+        cryovit.halo_exchange = zero_halos
+    elif fault == "local norms":
+        def local_norms(x, gn, channel_dim, mesh=None):
+            return saved[3](x, gn, channel_dim)
+        cryovit._group_norm = local_norms
+    elif fault == "swapped slots":
+        def swapped(self, local, dim=0):
+            other = dataclasses.replace(self, rank=self.size - 1 - self.rank)
+            return saved[2](other, local, dim)
+        Mesh.gather = swapped
+    try:
+        yield
+    finally:
+        Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm = saved
+
+
+def _parallel_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SEED) -> dict:
+    """One train step of the full-width decoder (bf16 on f32 masters, the
+    weights drawn from ``seed``) on ``batch`` as ``Trainer.place`` lays it out over the
+    mesh of ``mesh_shape`` (None: the single process): its logs, gradients,
+    parameter updates, launches and peak memory (above what the process
+    held before: weights, optimizer state, inputs and the step's own); with
+    ``timed`` the device ms (CUDA events) of that many more steps."""
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.config import TrainConfig
+    from cryovit_tpu_torch.models.cryovit import random_cryovit_state_dict
+    from cryovit_tpu_torch.run.train_model import build_model
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    held = torch.cuda.memory_allocated()
+    model = build_model(TrainConfig(label_key="mito"))
+    trainer = Trainer(precision="bf16", device=dev, mesh_shape=mesh_shape,
+                      enable_model_summary=False)
+    sd = random_cryovit_state_dict(torch.Generator().manual_seed(seed))
+    sd["output_layer.2.weight"] *= 100.0  # probabilities' std 0.1, as the train reference
+    module = model.build_module(sd, trainer.device)
+    trainer.model, trainer.module, trainer.optimizer = model, module, model.make_optimizer(module)
+    with _planted(fault):
+        data, label, sharding = trainer.place(model, batch, None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        logs = trainer.train_step(data, label, sharding)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        out = {
+            "logs": {k: float(v) for k, v in logs.items()},
+            "grads": {n: p.grad.float().cpu() for n, p in module.named_parameters()},
+            "updates": {n: (p.detach() - sd[n].to(p.device)).float().cpu()
+                        for n, p in module.named_parameters()},
+            "launches": counts, "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+            "slab": tuple(data.shape), "dim": None if sharding is None else sharding.dim,
+        }
+        if trainer.mesh is not None:  # rank 0's parameters, bit for bit
+            out["identical"] = all(
+                torch.equal(p, trainer.mesh.broadcast_(p.detach().clone()))
+                for p in module.parameters())
+        times = []
+        for _ in range(timed):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.train_step(data, label, sharding)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        out["ms"] = times
+    return out
+
+
+def _parallel_extract(dev, mesh, fault=None, timed=False) -> dict:
+    """The serving tomogram through ``DinoExtractor`` (ViT-g/14, seeded
+    weights, batch SLICE_BATCH) on ``mesh`` (None: the single process):
+    features on the host, launches, peak memory (above what the process
+    held before the weights), with ``timed`` the device ms of a second
+    extraction."""
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.run.dino_features import DinoExtractor, load_extractor
+
+    held = torch.cuda.memory_allocated()
+    extractor = DinoExtractor(load_extractor(random_init=True, device=dev),
+                              batch_size=SLICE_BATCH, mesh=mesh)
+    stack = _parallel_stack()
+    with _planted(fault):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        feats = extractor.extract_device(stack)
+        torch.cuda.synchronize()
+        out = {"feats": feats.cpu(), "launches": kernels.launch_counts(),
+               "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+        if timed:
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            extractor.extract_device(stack)
+            stop.record()
+            torch.cuda.synchronize()
+            out["ms"] = start.elapsed_time(stop)
+    return out
+
+
+def _update_error(got: torch.Tensor, want: torch.Tensor, grad: torch.Tensor) -> float:
+    """How far a parameter's update after the step is from the single
+    process's, each element weighted by the size of its single-process
+    gradient: Σ|g|·|Δu| / Σ|g|·|u|. AdamW's first step moves each element
+    by about the learning rate times the sign of its gradient, so a
+    gradient at rounding level (a conv bias before a norm) may flip its
+    update whole; weighted by |g| it counts as little as it matters."""
+    weight = grad.abs()
+    return ((weight * (got - want).abs()).sum() / (weight * want.abs()).sum()).item()
+
+
+def _step_agreement(got: dict, want: dict) -> dict:
+    """A step against the single process's: |Δ loss|, the worst gradient
+    (_worst_gradient) and the median one by the same rule, the worst
+    parameter update (_update_error), |Δ| of the pre-clip gradient norm
+    over its size."""
+    grad, grad_name = _worst_gradient(got["grads"], want["grads"])
+    per_leaf = sorted(_gradient_errors(got["grads"], want["grads"]).values())
+    update, update_name = max(
+        (_update_error(got["updates"][n], w, want["grads"][n]), n)
+        for n, w in want["updates"].items() if want["grads"][n].abs().sum().item() > 0)
+    g, w = got["logs"]["grad_norm_preclip"], want["logs"]["grad_norm_preclip"]
+    return {"loss": abs(got["logs"]["train_dice_loss"] - want["logs"]["train_dice_loss"]),
+            "grad": grad, "grad_at": grad_name, "grad_median": per_leaf[len(per_leaf) // 2],
+            "update": update, "update_at": update_name, "grad_norm": abs(g - w) / w}
+
+
+def _within(agreement: dict) -> bool:
+    return (agreement["loss"] <= PARALLEL_LOSS and agreement["grad"] <= PARALLEL_GRAD
+            and agreement["grad_median"] <= PARALLEL_GRAD_MEDIAN
+            and agreement["update"] <= PARALLEL_UPDATE)
+
+
+def _feature_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    got, want = got.float(), want.float()
+    return {"rel_l2": ((got - want).norm() / want.norm()).item(),
+            "max_abs": (got - want).abs().max().item()}
+
+
+# the train steps of the parallel phase and the faults planted into each
+PARALLEL_STEPS = (("data-parallel", ("averaged",)),
+                  ("depth-sharded", ("averaged", "zero halos", "local norms")))
+
+
+def _parallel_batches(dev: torch.device, seed: int = PARALLEL_SEED) -> dict:
+    """The batches of PARALLEL_STEPS: the two crops, and the first alone."""
+    crops = _parallel_crops(dev, seed)
+    one = dataclasses.replace(crops, data=crops.data[:1], label=crops.label[:1],
+                              num_slices=crops.num_slices[:1])
+    return {"data-parallel": crops, "depth-sharded": one}
+
+
+def _limit_readings(dev: torch.device, tmp: str, seeds) -> dict:
+    """A rank's readings for ``--parallel-limits``: for each seed and step
+    of PARALLEL_STEPS, two sound runs and each planted fault against the
+    single process's first run in ``tmp/single<seed>.pt``."""
+    out = {}
+    for seed in seeds:
+        ref = torch.load(f"{tmp}/single{seed}.pt", weights_only=False)
+        batches = _parallel_batches(dev, seed)
+        out[seed] = {}
+        for what, faults in PARALLEL_STEPS:
+            def step(fault=None):
+                return _step_agreement(
+                    _parallel_step(dev, batches[what], {"data": -1}, fault, seed=seed),
+                    ref[what][0])
+            out[seed][what] = {"sound": [step(), step()], "faults": {f: step(f) for f in faults}}
+            torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_rank(rank: int, world: int, tmp: str, device: str, seeds=()) -> None:
+    """One rank of the parallel phase: a gloo group on the one card, the
+    data-parallel step, the depth-sharded step and the sharded extraction,
+    each against the single process's results in ``tmp``, and the planted
+    faults; the summary to ``tmp/rank<rank>.pt``. With ``seeds``, the
+    readings of ``--parallel-limits`` (_limit_readings) instead."""
+    import torch.distributed as dist
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init", rank=rank,
+                            world_size=world)
+    try:
+        kernels.load_library()  # built by the parent: this loads it
+        if seeds:
+            torch.save(_limit_readings(dev, tmp, seeds), f"{tmp}/rank{rank}.pt")
+            return
+        ref = torch.load(f"{tmp}/single.pt", weights_only=False)
+        batches = _parallel_batches(dev)
+        out = {}
+        for what, faults in PARALLEL_STEPS:
+            batch = batches[what]
+            run = _parallel_step(dev, batch, {"data": -1}, timed=PARALLEL_TIMED)
+            out[what] = {
+                "agreement": _step_agreement(run, ref[what]),
+                "faults": {f: _step_agreement(_parallel_step(dev, batch, {"data": -1}, f),
+                                              ref[what]) for f in faults},
+                **{k: run[k] for k in ("launches", "peak_gib", "ms", "slab", "dim", "identical")},
+            }
+            torch.cuda.empty_cache()
+        mesh = make_mesh({"data": -1}, device=dev)
+        run = _parallel_extract(dev, mesh, timed=True)
+        out["extraction"] = {
+            "agreement": _feature_agreement(run["feats"], ref["extraction"]["feats"]),
+            "faults": {"swapped slots": _feature_agreement(
+                _parallel_extract(dev, mesh, "swapped slots")["feats"],
+                ref["extraction"]["feats"])},
+            **{k: run[k] for k in ("launches", "peak_gib", "ms")},
+        }
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
+    """``cryovit_tpu_torch.parallel`` on the card: PARALLEL_WORLD ranks
+    spawned on the one card, joined by an explicit gloo group (NCCL refuses
+    two ranks on one device; gloo's ``all_reduce`` and ``broadcast`` take
+    CUDA tensors through the host). Against the single process on the same
+    card (run first, here): the data-parallel CryoVIT train step (two
+    crops of the training cell, one a rank), the depth-sharded step (one
+    crop, TRAIN_DEPTH / PARALLEL_WORLD slices a rank) and the sharded DINOv2
+    extraction of the serving tomogram (SLICE_BATCH / PARALLEL_WORLD slices
+    a rank), with planted faults that must read above the limits; launches,
+    ms and peak memory per rank. Returns each rank's launches."""
+    from cryovit_tpu_torch import kernels
+
+    name = gpu_name_and_power()
+    tmp = workdir / "parallel"
+    tmp.mkdir()
+    batches = _parallel_batches(dev)
+    ref = {}
+    for what, batch in batches.items():
+        ref[what] = _parallel_step(dev, batch, None, timed=PARALLEL_TIMED)
+        torch.cuda.empty_cache()
+    ref["extraction"] = _parallel_extract(dev, None, timed=True)
+    torch.save(ref, tmp / "single.pt")
+    del batches
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dev_name = f"{dev.type}:0" if dev.type == "cuda" else dev.type
+    torch.multiprocessing.start_processes(_parallel_rank,
+                                          args=(PARALLEL_WORLD, str(tmp), dev_name),
+                                          nprocs=PARALLEL_WORLD, start_method="spawn")
+    log("parallel", f"{PARALLEL_WORLD} ranks spawned on the one card (gloo group), "
+        f"done in {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(PARALLEL_WORLD)]
+    log("parallel", f"gloo stages every collective through the host: the times below say "
+        f"nothing of NCCL scaling, and the ranks share one card ({name})")
+
+    checks = {}
+    for what in ("data-parallel", "depth-sharded"):
+        single = ref[what]
+        log("parallel", f"{what}: single process slab {single['slab']}, launches "
+            f"{ {k: n for k, n in single['launches'].items() if n} }, peak "
+            f"{single['peak_gib']:.2f} GiB, ms {' '.join(f'{t:.2f}' for t in single['ms'])} "
+            f"({name})")
+        for r, rank in enumerate(ranks):
+            run = rank[what]
+            a = run["agreement"]
+            log("parallel", f"{what} rank {r}: slab {run['slab']} (split dim {run['dim']}), "
+                f"launches { {k: n for k, n in run['launches'].items() if n} }, peak "
+                f"{run['peak_gib']:.2f} GiB ({run['peak_gib'] / single['peak_gib']:.3f} of the "
+                f"single process's), ms {' '.join(f'{t:.2f}' for t in run['ms'])} ({name}); "
+                f"|dloss| {a['loss']:.3g} (limit {PARALLEL_LOSS}), worst gradient "
+                f"{a['grad']:.4g} at {a['grad_at']} (limit {PARALLEL_GRAD}), median gradient "
+                f"{a['grad_median']:.4g} (limit {PARALLEL_GRAD_MEDIAN}), worst update "
+                f"{a['update']:.4g} at {a['update_at']} (limit {PARALLEL_UPDATE}), grad norm "
+                f"{a['grad_norm']:.3g}")
+            checks[f"{what} rank {r} agrees with the single process"] = _within(a)
+            checks[f"{what} rank {r} launches {TRAIN_STEP_LAUNCHES}"] = (
+                run["launches"] == TRAIN_STEP_LAUNCHES)
+            for fault, f in run["faults"].items():
+                log("parallel", f"{what} rank {r}, planted fault ({PARALLEL_FAULTS[fault]}): "
+                    f"|dloss| {f['loss']:.3g}, worst gradient {f['grad']:.4g} at {f['grad_at']}, "
+                    f"median gradient {f['grad_median']:.4g}, worst update {f['update']:.4g}, "
+                    f"grad norm {f['grad_norm']:.3g}")
+                checks[f"{what} rank {r}: the planted fault '{fault}' reads above the limits"] = (
+                    not _within(f))
+        checks[f"{what}: every rank's parameters equal rank 0's after the step"] = all(
+            rank[what]["identical"] for rank in ranks)
+    depth_ratio = max(r["depth-sharded"]["peak_gib"] for r in ranks) / ref["depth-sharded"]["peak_gib"]
+    log("parallel", f"depth-sharded peak per rank / single process: {depth_ratio:.3f} ({name})")
+
+    single = ref["extraction"]
+    log("parallel", f"extraction single process: launches "
+        f"{ {k: n for k, n in single['launches'].items() if n} }, peak {single['peak_gib']:.2f} "
+        f"GiB, {single['ms']:.2f} ms ({name})")
+    for r, rank in enumerate(ranks):
+        run = rank["extraction"]
+        a, f = run["agreement"], run["faults"]["swapped slots"]
+        log("parallel", f"extraction rank {r}: {SLICE_BATCH // PARALLEL_WORLD} slices, launches "
+            f"{ {k: n for k, n in run['launches'].items() if n} }, peak {run['peak_gib']:.2f} GiB, "
+            f"{run['ms']:.2f} ms ({name}); features rel L2 {a['rel_l2']:.3g} (limit "
+            f"{PARALLEL_FEATURES}), max|diff| {a['max_abs']:.3g}; planted fault "
+            f"({PARALLEL_FAULTS['swapped slots']}): rel L2 {f['rel_l2']:.3g}")
+        checks[f"extraction rank {r} agrees with the single process"] = (
+            a["rel_l2"] <= PARALLEL_FEATURES)
+        checks[f"extraction rank {r}: the planted fault reads above the limit"] = (
+            f["rel_l2"] > PARALLEL_FEATURES)
+        checks[f"extraction rank {r} launches 40 flash_attention"] = (
+            {k: n for k, n in run["launches"].items() if n} == {"flash_attention": 40})
+    _report_checks(checks, "parallel phase")
+    per_rank = [{k: sum(rank[what]["launches"][k]
+                        for what in ("data-parallel", "depth-sharded", "extraction"))
+                 for k in kernels.KERNELS} for rank in ranks]
+    return per_rank
+
+
+LIMIT_KEYS = ("loss", "grad", "grad_median", "update", "grad_norm")
+
+
+def parallel_limits(dev: torch.device, workdir: Path) -> dict:
+    """``chip_smoke.py --parallel-limits``: the readings PARALLEL_LOSS and
+    PARALLEL_GRAD are set between. For each of PARALLEL_LIMIT_SEEDS (crops
+    and weights), the single process twice (its second run against its
+    first: the card's own run-to-run spread), then PARALLEL_WORLD ranks on
+    the one card as in ``parallel_phase``: each step of PARALLEL_STEPS
+    twice sound and once with each planted fault, against the single
+    process's first run. Prints every reading and, for each step and
+    reading (LIMIT_KEYS), the largest sound value and each fault's
+    smallest; returns that summary."""
+    name = gpu_name_and_power()
+    tmp = workdir / "parallel_limits"
+    tmp.mkdir()
+    spread = {}
+    for seed in PARALLEL_LIMIT_SEEDS:
+        batches = _parallel_batches(dev, seed)
+        ref = {}
+        for what, batch in batches.items():
+            first = _parallel_step(dev, batch, None, seed=seed)
+            spread[seed, what] = _step_agreement(_parallel_step(dev, batch, None, seed=seed), first)
+            ref[what] = [{k: first[k] for k in ("logs", "grads", "updates")}]
+            del first
+            torch.cuda.empty_cache()
+        torch.save(ref, tmp / f"single{seed}.pt")
+        del ref, batches
+    dev_name = f"{dev.type}:0" if dev.type == "cuda" else dev.type
+    torch.multiprocessing.start_processes(
+        _parallel_rank, args=(PARALLEL_WORLD, str(tmp), dev_name, PARALLEL_LIMIT_SEEDS),
+        nprocs=PARALLEL_WORLD, start_method="spawn")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(PARALLEL_WORLD)]
+
+    def line(a):
+        return " ".join(f"{k} {a[k]:.4g}" for k in LIMIT_KEYS) + f" (worst at {a['grad_at']})"
+
+    summary = {}
+    for what, faults in PARALLEL_STEPS:
+        sound, bad = [], {f: [] for f in faults}
+        for seed in PARALLEL_LIMIT_SEEDS:
+            log("limits", f"{what} seed {seed} single process run 2 vs run 1: "
+                f"{line(spread[seed, what])} ({name})")
+            for r, rank in enumerate(ranks):
+                got = rank[seed][what]
+                for i, a in enumerate(got["sound"]):
+                    log("limits", f"{what} seed {seed} rank {r} sound run {i + 1}: {line(a)}")
+                    sound.append(a)
+                for f, a in got["faults"].items():
+                    log("limits", f"{what} seed {seed} rank {r} fault '{f}': {line(a)}")
+                    bad[f].append(a)
+        summary[what] = {
+            "single_spread_max": {k: max(spread[s_, what][k] for s_ in PARALLEL_LIMIT_SEEDS)
+                                  for k in LIMIT_KEYS},
+            "sound_max": {k: max(a[k] for a in sound) for k in LIMIT_KEYS},
+            **{f"fault_min {f}": {k: min(a[k] for a in v) for k in LIMIT_KEYS}
+               for f, v in bad.items()},
+        }
+    log("limits", json.dumps({"card": name, "seeds": list(PARALLEL_LIMIT_SEEDS),
+                              "summary": summary}))
+    return summary
+
+
 PROFILE_GROUPS = (
     ("port kernels (decoder tail)", ("conv3d_dm", "convt2x_dm", "sum_partials")),
     ("cuDNN / cuBLAS (projection, front convs)",
@@ -3660,6 +4148,13 @@ def main() -> int:
         return 1
     from cryovit_tpu_torch import kernels
 
+    if sys.argv[1:] == ["--parallel-limits"]:
+        log("device", gpu_name_and_power())
+        kernels.load_library()
+        with tempfile.TemporaryDirectory(prefix="cryovit_smoke_") as tmp:
+            parallel_limits(torch.device("cuda"), Path(tmp))
+        return 0
+
     dev = torch.device("cuda")
     card = gpu_name_and_power()
     log("device", f"{card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
@@ -3691,12 +4186,15 @@ def main() -> int:
         unet = unet3d_training_phase(dev, Path(tmp))
         torch.cuda.empty_cache()
         sam2, sam2_kv = sam2_training_phase(dev, Path(tmp))
+        torch.cuda.empty_cache()
+        parallel = parallel_phase(dev, Path(tmp))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": (serving[name] + training[name] + experiment[name] + sam[name]
-                      + sam_t[name] + unet[name] + sam2[name] + sam2_kv[name]),
+                      + sam_t[name] + unet[name] + sam2[name] + sam2_kv[name]
+                      + sum(rank[name] for rank in parallel)),
          **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
@@ -3737,6 +4235,12 @@ def main() -> int:
         # the kv_cache check's two tracking passes (uncached, cached)
         next(r for r in report["kernels"] if r["name"] == name)["sam2_kv_cache"] = {
             "launches": sam2_kv[name], "per_pass": SAM_BATCH_LAUNCHES[name], "passes": 6}
+    # rows 1 and 4-7 on the parallel phase's ranks (one data-parallel and
+    # one depth-sharded train step, one sharded extraction each)
+    for row in report["kernels"]:
+        if any(rank[row["name"]] for rank in parallel):
+            row["parallel"] = {"launches_per_rank": [rank[row["name"]] for rank in parallel],
+                               "ranks": PARALLEL_WORLD, "backend": "gloo on one card"}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -250,10 +250,10 @@ class BaseTrainerConfig:
     redesigned from the reference's Lightning one, ``config.py:49-77``).
 
     ``precision`` is the compute-dtype policy (bf16 | f32). ``mesh_shape``
-    is the JAX package's device mesh: the port runs on one GPU, and
-    ``run/common.py:build_trainer`` refuses any mesh until parallelism is
-    ported (ROADMAP A10). ``donate_state`` (XLA buffer donation) has no
-    torch counterpart and is accepted with no effect."""
+    is the device mesh (``{axis: size}``, −1 fills): a mesh over the
+    processes of a ``torchrun`` launch, one per GPU
+    (``cryovit_tpu_torch.parallel.make_mesh``). ``donate_state`` (XLA buffer
+    donation) has no torch counterpart and is accepted with no effect."""
 
     precision: str = "bf16"  # compute dtype policy: bf16 | f32
     max_epochs: int | None = None

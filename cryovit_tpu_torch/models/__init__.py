@@ -34,6 +34,7 @@ class CryoVIT(BaseModel):
     """CryoVIT decoder over DINOv2 features (reference ``models/cryovit.py``)."""
 
     model_type = ModelType.CRYOVIT
+    depth_shardable = True
 
     def build_module(
         self,

@@ -13,6 +13,7 @@ a ground-truth auxiliary mask.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable
 
 import torch
@@ -23,6 +24,26 @@ from cryovit_tpu_torch.types import ModelType
 __all__ = ["BaseModel", "clip_gradients", "global_norm", "prediction_mask"]
 
 LossFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _call_masked_fn(fn, y_pred, y_true, mask, mesh):
+    """Call a loss or metric, forwarding ``mesh`` when it takes one
+    (``base.py:_call_masked_fn`` of the JAX package, with ``axis_name``).
+
+    The built-in losses and metrics take ``mesh`` and sum over its ranks; a
+    user callable without the parameter runs on the rank's shard alone."""
+    if mesh is None:
+        return fn(y_pred, y_true, mask)
+    try:
+        params = inspect.signature(fn).parameters
+        takes_mesh = "mesh" in params or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()
+        )
+    except (TypeError, ValueError):
+        takes_mesh = False
+    if takes_mesh:
+        return fn(y_pred, y_true, mask, mesh=mesh)
+    return fn(y_pred, y_true, mask)
 
 
 def prediction_mask(y_true: torch.Tensor, aux_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -70,6 +91,9 @@ class BaseModel:
 
     model_type: ModelType
     train_mode: bool = False  # set by the Trainer around fit epochs
+    # whether the module's forward takes a depth slab and ``mesh=``
+    # (parallel/spatial.py); a batch of one tomogram is replicated otherwise
+    depth_shardable: bool = False
 
     def __init__(
         self,
@@ -102,32 +126,40 @@ class BaseModel:
     ) -> nn.Module:
         raise NotImplementedError
 
-    def apply(self, module: nn.Module, data) -> torch.Tensor:
-        """Forward pass: ``(B, D, H, W, C)`` → probabilities ``(B, D, H, W)``."""
-        return module(data)
+    def apply(self, module: nn.Module, data, mesh=None) -> torch.Tensor:
+        """Forward pass: ``(B, D, H, W, C)`` → probabilities ``(B, D, H, W)``.
+        ``mesh`` (families with :attr:`depth_shardable` only): ``data`` is
+        this rank's depth slab of a depth-sharded batch."""
+        return module(data) if mesh is None else module(data, mesh=mesh)
 
-    def apply_with_aux(self, module: nn.Module, data) -> tuple[torch.Tensor, dict]:
+    def apply_with_aux(self, module: nn.Module, data, mesh=None) -> tuple[torch.Tensor, dict]:
         """Probabilities and the model's extra outputs for its own loss
         terms (SAM2's prompts); none here."""
-        return self.apply(module, data), {}
+        return self.apply(module, data, mesh), {}
 
     def compute_losses(
         self, y_pred: torch.Tensor, y_true: torch.Tensor, mask: torch.Tensor,
-        aux: dict | None = None,
+        aux: dict | None = None, mesh=None,
     ) -> dict[str, torch.Tensor]:
         """All losses and their sum as ``total`` (reference
         ``base_model.py:114-119``). Keys are the config names
         (``dice_loss``), the reference's metrics-CSV columns. ``aux`` carries
-        :meth:`apply_with_aux`'s extra outputs."""
-        out = {key: fn(y_pred, y_true, mask) for key, fn in self.losses.items()}
+        :meth:`apply_with_aux`'s extra outputs. ``mesh`` (a
+        :class:`~cryovit_tpu_torch.parallel.Mesh`, the JAX package's
+        ``axis_name``) makes the losses that take it global over the ranks'
+        shards."""
+        out = {key: _call_masked_fn(fn, y_pred, y_true, mask, mesh)
+               for key, fn in self.losses.items()}
         out["total"] = sum(out.values())
         return out
 
     def compute_metrics(
-        self, y_pred: torch.Tensor, y_true: torch.Tensor, mask: torch.Tensor
+        self, y_pred: torch.Tensor, y_true: torch.Tensor, mask: torch.Tensor, mesh=None
     ) -> dict[str, torch.Tensor]:
-        """Metric keys are config names (``dice_metric``, ``f1_metric``)."""
-        return {key: fn(y_pred, y_true, mask) for key, fn in self.metrics.items()}
+        """Metric keys are config names (``dice_metric``, ``f1_metric``);
+        ``mesh`` as in :meth:`compute_losses`."""
+        return {key: _call_masked_fn(fn, y_pred, y_true, mask, mesh)
+                for key, fn in self.metrics.items()}
 
     def make_optimizer(self, params, lr: float | None = None) -> torch.optim.AdamW:
         """AdamW(lr, weight_decay) with optax's defaults (β 0.9/0.999, ε

@@ -24,6 +24,17 @@ effect: 16× H/W upsampling from the patch grid back to voxels; depth kept.
 - The compute dtype is ``CryoVIT.dtype`` (``CryoVITModule(dtype=...)``):
   weights are cast to it on use, so the parameters can stay f32 masters
   while training computes in bf16. None computes in the parameters' dtype.
+- Depth-sharded (``forward(feats, mesh=...)``, ``parallel/spatial.py``):
+  each rank holds a slab of consecutive slices. Before each k3 conv of
+  depth dilation ``d`` the slab takes ``d`` slices of each neighbour
+  (:func:`~cryovit_tpu_torch.parallel.halo_exchange`); the front's
+  ``F.conv3d`` calls then run with depth padding 0, so no output is
+  computed twice, while the tail kernels, which pad "same" themselves, run
+  on the halo'd slab and their ``2·d`` halo outputs (d ≤ 8) are dropped.
+  GroupNorm takes its statistics over the whole depth (the group sums
+  all-reduced, differentiably, in both passes). The JAX package turns its
+  Pallas kernels off on this path (GSPMD cannot partition them); the port
+  keeps them, as they compute the same per-slab convolution.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from torch import nn
 from cryovit_tpu_torch.models._init import lecun_normal
 from cryovit_tpu_torch.ops.conv3d_dm import conv3d_dm, conv3d_dm_dw
 from cryovit_tpu_torch.ops.convt_dm import convt2x_dm, convt2x_dm_bwd
+from cryovit_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+from cryovit_tpu_torch.parallel.spatial import halo_exchange
 
 __all__ = ["BF16_KERNELS", "CryoVIT", "SynthesisBlock", "make_cryovit", "random_cryovit_state_dict"]
 
@@ -48,16 +61,25 @@ _PROJ_CHANNELS = 1024
 _DEPTH_MAJOR_FROM = 2  # blocks 2-3 and the head run depth-major
 
 
-def _group_norm(x: torch.Tensor, gn: nn.GroupNorm, channel_dim: int) -> torch.Tensor:
+def _group_norm(
+    x: torch.Tensor, gn: nn.GroupNorm, channel_dim: int, mesh: Mesh | None = None
+) -> torch.Tensor:
     """GroupNorm with f32 statistics over (depth, channels of the group, H, W)
     for channels at ``channel_dim`` (1: channels-first, 2: depth-major),
-    output in x's dtype."""
+    output in x's dtype. With a depth-sharded ``mesh`` the statistics cover
+    every rank's slab: the sums of both passes (mean, then the centred
+    squares) are all-reduced."""
     shape = x.shape
     c = shape[channel_dim]
     g = gn.num_groups
     xg = x.float().reshape(*shape[:channel_dim], g, c // g, *shape[channel_dim + 1 :])
     dims = tuple(i for i in range(1, xg.dim()) if i != channel_dim)
-    var, mean = torch.var_mean(xg, dim=dims, keepdim=True, correction=0)
+    if _sharded(mesh):
+        count = xg[0].numel() // g * mesh.size
+        mean = all_reduce_sum(xg.sum(dim=dims, keepdim=True), mesh) / count
+        var = all_reduce_sum((xg - mean).square().sum(dim=dims, keepdim=True), mesh) / count
+    else:
+        var, mean = torch.var_mean(xg, dim=dims, keepdim=True, correction=0)
     y = ((xg - mean) * torch.rsqrt(var + gn.eps)).reshape(shape)
     affine = [1] * len(shape)
     affine[channel_dim] = c
@@ -106,6 +128,19 @@ class _ConvTDM(torch.autograd.Function):
         return dx, dw.to(kernel.dtype)
 
 
+def _sharded(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def _conv_dm(x: torch.Tensor, kernel: torch.Tensor, dilation, mesh: Mesh | None) -> torch.Tensor:
+    """:class:`_ConvDM` on depth-major x; depth-sharded, on the slab with
+    its halos, keeping the slab's own outputs."""
+    if not _sharded(mesh):
+        return _ConvDM.apply(x, kernel, dilation)
+    d, local = dilation[0], x.shape[1]
+    return _ConvDM.apply(halo_exchange(x, mesh, 1, d), kernel, dilation)[:, d : d + local]
+
+
 def _dm_kernel(conv: nn.Conv3d, dtype: torch.dtype) -> torch.Tensor:
     """torch Conv3d weight ``(Co, Ci, kd, kh, kw)`` → flax ``(kd, kh, kw, Ci, Co)``."""
     return conv.weight.to(dtype).permute(2, 3, 4, 1, 0)
@@ -115,11 +150,16 @@ def _dm_bias(bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return bias.to(dtype).view(1, 1, -1, 1, 1)
 
 
-def _conv_cf(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
-    """``conv`` on channels-first x with its weights cast to x's dtype."""
+def _conv_cf(x: torch.Tensor, conv: nn.Conv3d, mesh: Mesh | None = None) -> torch.Tensor:
+    """``conv`` on channels-first x with its weights cast to x's dtype;
+    depth-sharded, on the slab with its halos and no depth padding."""
+    padding = conv.padding
+    if _sharded(mesh):
+        x = halo_exchange(x, mesh, 2, conv.dilation[0])
+        padding = (0, *padding[1:])
     return F.conv3d(
         x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-        padding=conv.padding, dilation=conv.dilation,
+        padding=padding, dilation=conv.dilation,
     )
 
 
@@ -138,25 +178,25 @@ class SynthesisBlock(nn.Module):
             nn.GELU(),
         )
 
-    def forward_channels_first(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_channels_first(self, x: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
         """``(B, C, D, H, W)`` → ``(B, c3, D, 2H, 2W)`` on library convs, in
-        x's dtype."""
+        x's dtype (``mesh``: x is this rank's depth slab)."""
         gn, conv0, _, conv1, _, convt, _ = self.layers
-        x = _group_norm(x, gn, channel_dim=1)
-        x = F.gelu(_conv_cf(x, conv0))
-        x = F.gelu(_conv_cf(x, conv1))
+        x = _group_norm(x, gn, channel_dim=1, mesh=mesh)
+        x = F.gelu(_conv_cf(x, conv0, mesh))
+        x = F.gelu(_conv_cf(x, conv1, mesh))
         return F.gelu(F.conv_transpose3d(
             x, convt.weight.to(x.dtype), convt.bias.to(x.dtype), stride=convt.stride
         ))
 
-    def forward_depth_major(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_depth_major(self, x: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
         """``(B, D, C, H, W)`` → ``(B, D, c3, 2H, 2W)`` on the tail kernels, in
-        x's dtype."""
+        x's dtype (``mesh``: x is this rank's depth slab)."""
         gn, conv0, _, conv1, _, convt, _ = self.layers
         dt = x.dtype
-        x = _group_norm(x, gn, channel_dim=2)
-        x = F.gelu(_ConvDM.apply(x, _dm_kernel(conv0, dt), conv0.dilation) + _dm_bias(conv0.bias, dt))
-        x = F.gelu(_ConvDM.apply(x, _dm_kernel(conv1, dt), conv1.dilation) + _dm_bias(conv1.bias, dt))
+        x = _group_norm(x, gn, channel_dim=2, mesh=mesh)
+        x = F.gelu(_conv_dm(x, _dm_kernel(conv0, dt), conv0.dilation, mesh) + _dm_bias(conv0.bias, dt))
+        x = F.gelu(_conv_dm(x, _dm_kernel(conv1, dt), conv1.dilation, mesh) + _dm_bias(conv1.bias, dt))
         # torch's ConvTranspose3d weight (Ci, Co, 1, 2, 2) is flax's kernel
         # with both lateral taps flipped
         kernel = convt.weight.to(dt).flip(2, 3, 4).permute(2, 3, 4, 0, 1)
@@ -169,7 +209,8 @@ class CryoVIT(nn.Module):
     Input: ``(B, D, h, w, in_channels)`` DINOv2 patch features (h = H/16;
     1536 channels for ViT-g). Output: ``(B, D, 16·h, 16·w)`` f32 per-voxel
     probabilities. Computes in ``dtype``, or in the dtype of its parameters
-    when that is None.
+    when that is None. With ``forward(feats, mesh=...)`` (a mesh of more
+    than one rank) ``feats`` is this rank's depth slab and so is the output.
     """
 
     def __init__(self, in_channels: int = 1536, dtype: torch.dtype | None = None):
@@ -187,7 +228,7 @@ class CryoVIT(nn.Module):
             nn.Conv3d(8, 8, 3, padding=1), nn.GELU(), nn.Conv3d(8, 1, 3, padding=1)
         )
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
         proj, _, *blocks = self.layers
         dtype = self.dtype or proj.weight.dtype
         x = feats.to(dtype)
@@ -195,14 +236,14 @@ class CryoVIT(nn.Module):
         x = F.gelu(F.linear(x, proj.weight.to(dtype).flatten(1), proj.bias.to(dtype)))
         x = x.permute(0, 4, 1, 2, 3)  # (B, C, D, h, w)
         for block in blocks[:_DEPTH_MAJOR_FROM]:
-            x = block.forward_channels_first(x)
+            x = block.forward_channels_first(x, mesh)
         x = x.transpose(1, 2).contiguous()  # depth-major (B, D, C, H, W)
         for block in blocks[_DEPTH_MAJOR_FROM:]:
-            x = block.forward_depth_major(x)
+            x = block.forward_depth_major(x, mesh)
         conv1, _, conv2 = self.output_layer
         one = (1, 1, 1)
-        x = F.gelu(_ConvDM.apply(x, _dm_kernel(conv1, dtype), one) + _dm_bias(conv1.bias, dtype))
-        x = _ConvDM.apply(x, _dm_kernel(conv2, dtype), one)[:, :, 0] + conv2.bias.to(dtype)
+        x = F.gelu(_conv_dm(x, _dm_kernel(conv1, dtype), one, mesh) + _dm_bias(conv1.bias, dtype))
+        x = _conv_dm(x, _dm_kernel(conv2, dtype), one, mesh)[:, :, 0] + conv2.bias.to(dtype)
         return torch.sigmoid(torch.clamp(x.float(), -5.0, 5.0))
 
 

@@ -233,12 +233,12 @@ class SAM2(BaseModel):
             out = module(data)
         return out["preds"], {"prompts": out["prompts"]}
 
-    def compute_losses(self, y_pred, y_true, mask, aux=None):
-        losses = super().compute_losses(y_pred, y_true, mask)
+    def compute_losses(self, y_pred, y_true, mask, aux=None, mesh=None):
+        losses = super().compute_losses(y_pred, y_true, mask, mesh=mesh)
         if aux and "prompts" in aux:
             # Dice of the predicted prompts, supervising the prompt
             # predictor (reference models/sam2.py:145-148)
-            losses["mask_loss"] = dice_loss(aux["prompts"], y_true, mask)
+            losses["mask_loss"] = dice_loss(aux["prompts"], y_true, mask, mesh=mesh)
             losses["total"] = losses["total"] + losses["mask_loss"]
         return losses
 

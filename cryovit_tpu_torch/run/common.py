@@ -11,7 +11,7 @@ from typing import Any
 
 import torch
 
-from cryovit_tpu_torch.composer import ConfigError, DotDict, _import_target, instantiate
+from cryovit_tpu_torch.composer import DotDict, _import_target, instantiate
 from cryovit_tpu_torch.config import PRECISION_DTYPES
 from cryovit_tpu_torch.models.base import BaseModel
 from cryovit_tpu_torch.train.loop import Trainer
@@ -67,18 +67,12 @@ def build_trainer(
     """Trainer + callbacks + loggers from config, on ``device`` (the GPU
     unless the CPU is named).
 
-    The trainer schema's ``mesh_shape`` (the JAX package's device mesh)
-    raises unless None: the port runs on one GPU until parallelism is
-    ported (ROADMAP A10). ``donate_state`` (XLA buffer donation) has no
-    torch counterpart and is dropped."""
+    The trainer schema's ``mesh_shape`` (e.g. ``{data: -1}``) goes to the
+    :class:`Trainer`, which makes the mesh over the process group
+    (``torchrun`` sets it up; without one, a mesh of one process).
+    ``donate_state`` (XLA buffer donation) has no torch counterpart and is
+    dropped."""
     trainer_cfg: dict[str, Any] = dict(cfg.get("trainer") or {})
-    mesh_shape = trainer_cfg.pop("mesh_shape", None)
-    if mesh_shape is not None:
-        raise ConfigError(
-            f"trainer.mesh_shape={mesh_shape!r}: the port trains on one GPU; device meshes "
-            "(data parallelism, the depth-sharded fallback) come with the port of "
-            "parallelism (ROADMAP A10). Leave trainer.mesh_shape null."
-        )
     trainer_cfg.pop("donate_state", None)
     callbacks = [instantiate(node) for node in (cfg.get("callbacks") or {}).values()]
     loggers = [instantiate(node) for node in (cfg.get("logger") or {}).values()]

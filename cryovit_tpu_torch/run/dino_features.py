@@ -33,6 +33,7 @@ from cryovit_tpu_torch.data.transforms import (
 from cryovit_tpu_torch.io import load_data
 from cryovit_tpu_torch.models._init import lecun_normal
 from cryovit_tpu_torch.models.dinov2 import DinoV2, DinoV2Config, make_dinov2
+from cryovit_tpu_torch.parallel.mesh import Mesh, batch_sharding
 
 logger = logging.getLogger(__name__)
 
@@ -139,12 +140,34 @@ def load_extractor(
 
 class DinoExtractor:
     """Slice-batch feature extractor. Output layout matches the reference
-    file format: ``(1536, D, H/16, W/16)`` fp16."""
+    file format: ``(1536, D, H/16, W/16)`` fp16.
 
-    def __init__(self, model: DinoV2, batch_size: int = 128) -> None:
+    With a ``mesh`` of more than one rank (``cryovit_tpu_torch.parallel``),
+    every rank calls :meth:`extract` on the same stack with the same
+    weights: ``batch_size`` is rounded up to a multiple of the mesh size,
+    each batch is zero-padded to it, each rank runs its slice of every
+    batch, and the features are gathered on every rank."""
+
+    def __init__(self, model: DinoV2, batch_size: int = 128, mesh: Mesh | None = None) -> None:
         self.model = model
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and batch_size % self.mesh.size:
+            # equal shards per rank; the tail batch is padded anyway
+            batch_size = -(-batch_size // self.mesh.size) * self.mesh.size
+            logger.info("batch_size rounded up to %d (mesh of %d)", batch_size, self.mesh.size)
         self.batch_size = batch_size
         self.device = model.pos_embed.device
+
+    def _batch(self, b: torch.Tensor) -> torch.Tensor:
+        """``(n, gh·gw, C)`` fp16 features of one batch of slices."""
+        if self.mesh is None:
+            return self.model(dino_device_preprocess(b.to(self.device))).to(torch.float16)
+        n, bs = b.shape[0], self.batch_size
+        if n < bs:  # the tail batch, padded as the JAX package pads it
+            b = torch.cat([b, b.new_zeros((bs - n, *b.shape[1:]))])
+        mine = batch_sharding(self.mesh).local(b)
+        feats = self.model(dino_device_preprocess(mine.to(self.device))).to(torch.float16)
+        return self.mesh.gather(feats)[:n]
 
     @torch.inference_mode()
     def extract_device(self, stack: np.ndarray | torch.Tensor) -> torch.Tensor:
@@ -154,10 +177,7 @@ class DinoExtractor:
         stack = torch.as_tensor(stack)
         d = stack.shape[0]
         gh, gw = dino_grid_shape(*stack.shape[-2:])
-        feats = torch.cat(
-            [self.model(dino_device_preprocess(b.to(self.device))).to(torch.float16)
-             for b in stack.split(self.batch_size)]
-        )  # (D, gh·gw, C)
+        feats = torch.cat([self._batch(b) for b in stack.split(self.batch_size)])  # (D, gh·gw, C)
         # (C, D, gh, gw) laid out on the device: one transfer, no host transpose
         return feats.permute(2, 0, 1).reshape(-1, d, gh, gw).contiguous()
 

@@ -37,6 +37,7 @@ from cryovit_tpu_torch.models.sam2.encoder import (
     random_encoder_state_dict,
 )
 from cryovit_tpu_torch.ops.resize import resize_linear_2d
+from cryovit_tpu_torch.parallel.mesh import Mesh, batch_sharding
 from cryovit_tpu_torch.run import dino_features
 from cryovit_tpu_torch.run.dino_features import default_model_dir, save_feature_hdf
 
@@ -110,10 +111,22 @@ class SamFeatureExtractor:
     """Slice-batch pyramid extractor: ``(D, H, W)`` f32 slices → per level
     ``(D, C, h, w)`` fp16 ``backbone_fpn`` and ``vision_pos_enc``. The
     encoder carries its mode: built with ``quant_int8`` (``load_sam_encoder``)
-    it runs the w8a8 projections."""
+    it runs the w8a8 projections.
 
-    def __init__(self, encoder: ImageEncoder, batch_size: int = 64) -> None:
+    With a ``mesh`` of more than one rank, every rank calls :meth:`extract`
+    on the same stack with the same weights: ``batch_size`` is rounded up
+    to a multiple of the mesh size, each rank encodes its slice of every
+    padded batch, and the pyramids are gathered on every rank."""
+
+    def __init__(
+        self, encoder: ImageEncoder, batch_size: int = 64, mesh: Mesh | None = None
+    ) -> None:
         self.encoder = encoder
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and batch_size % self.mesh.size:
+            # equal shards per rank; the tail batch is padded anyway
+            batch_size = -(-batch_size // self.mesh.size) * self.mesh.size
+            logger.info("batch_size rounded up to %d (mesh of %d)", batch_size, self.mesh.size)
         self.batch_size = batch_size
         self.device = encoder.trunk.pos_embed.device
         self.image_size = encoder.cfg.image_size
@@ -130,12 +143,20 @@ class SamFeatureExtractor:
             n = batch.shape[0]
             if n < bs:  # the tail batch, padded as the JAX package pads it
                 batch = np.concatenate([batch, np.zeros((bs - n, *batch.shape[1:]), np.float32)])
-            x = torch.from_numpy(batch).to(self.device)
+            x = torch.from_numpy(batch)
+            if self.mesh is not None:
+                x = batch_sharding(self.mesh).local(x)
+            x = x.to(self.device)
             if x.shape[1:] != (s, s):
                 x = resize_linear_2d(x, s, s)
             x = x[..., None].expand(-1, -1, -1, self.in_chans)
             out = self.encoder(x)
-            feats.append([f[:n].permute(0, 3, 1, 2).to(torch.float16) for f in out["backbone_fpn"]])
+            if self.mesh is None:
+                feats.append([f[:n].permute(0, 3, 1, 2).to(torch.float16)
+                              for f in out["backbone_fpn"]])
+            else:
+                feats.append([self.mesh.gather(f.permute(0, 3, 1, 2).to(torch.float16))[:n]
+                              for f in out["backbone_fpn"]])
             if not pos_enc:
                 pos_enc = [p[0].permute(2, 0, 1).to(torch.float16).cpu().numpy()
                            for p in out["vision_pos_enc"]]

@@ -229,7 +229,8 @@ def run_trainer(cfg: DotDict, device: torch.device | str | None = None) -> Path:
     weights), and write ``weights.pt`` there: the ``torch.save``'d state
     dict under the reference's names, as the original CryoVIT writes it
     (the JAX package writes ``weights.msgpack``; both packages read either).
-    Runs on the GPU unless ``device`` names the CPU."""
+    Runs on the GPU unless ``device`` names the CPU; with
+    ``trainer.mesh_shape`` on every rank of the mesh, rank 0 writing."""
     from cryovit_tpu_torch.run import common
 
     validate_experiment_config(cfg)
@@ -244,7 +245,7 @@ def run_trainer(cfg: DotDict, device: torch.device | str | None = None) -> Path:
         trainer.enable_checkpointing = True
 
     # hparam logging (reference run/train_model.py:251-287)
-    if trainer.loggers:
+    if trainer.loggers and trainer.is_main:
         dm = cfg.get("datamodule", {})
         sample = dm.get("sample")
         hparams = {
@@ -278,6 +279,7 @@ def run_trainer(cfg: DotDict, device: torch.device | str | None = None) -> Path:
         pretrained_variables=_sam_pretrained(model, cfg),
     )
     weights = exp_dir / "weights.pt"
-    torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, weights)
-    logger.info("saved weights to %s", weights)
+    if trainer.is_main:  # on a mesh, rank 0 writes
+        torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, weights)
+        logger.info("saved weights to %s", weights)
     return exp_dir

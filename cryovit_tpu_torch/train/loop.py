@@ -1,7 +1,8 @@
 """The Trainer: the fit loop of ``cryovit_tpu/train/loop.py`` in PyTorch.
 
 Replaces PyTorch Lightning (reference ``BaseTrainer`` config and the
-``BaseModel`` step methods) with an explicit loop on one device:
+``BaseModel`` step methods) with an explicit loop on one device, or on each
+rank of a mesh (``mesh_shape``, ``parallel/``):
 
 - :meth:`Trainer.train_step`: forward, masked losses, backward (through the
   decoder tail's kernels on a GPU), gradient norms and optional clipping,
@@ -26,7 +27,27 @@ conditioning-slice draw and cached pyramids), ``train_mode`` is set around
 the fit epochs, ``apply_with_aux`` returns the extra outputs that
 ``compute_losses(..., aux=...)`` reads (SAM2's prompt loss), and
 ``make_optimizer(module)`` builds the optimizer with the family's parameter
-groups. Not ported yet: the device mesh (``shard_map`` data parallelism).
+groups.
+
+Under a mesh of more than one process (the JAX package's ``shard_map``
+steps, written out on ``torch.distributed``):
+
+- every rank iterates the same loader (same seed, same order) and keeps its
+  part of each batch (:meth:`Trainer.place`): a slice of the batch axis
+  when it divides the mesh (data parallelism), else, for a family with a
+  depth-sharded forward (CryoVIT), a slab of the depth axis, else the whole
+  batch (the replicated step: SAM2's dict inputs, a batch of one for
+  UNet3D or SAM2, the mito-masked test path);
+- the losses and metrics carry the mesh (global values, equal to the
+  single-process ones), and the parameter gradients are summed over the
+  ranks (JAX's ``psum(grads)``; averaging, DDP's default, would be wrong by
+  the world size since the losses are already global) before the norms,
+  clipping and AdamW; the replicated step takes rank 0's gradients, so the
+  parameters stay identical on every rank;
+- the parameters and optimizer state start from rank 0's, SWA runs on every
+  rank, every rank holds the same logs and the gathered predictions, and
+  rank 0 alone runs the loggers, the checkpoint and the callbacks that
+  write (everything but SWA).
 """
 
 from __future__ import annotations
@@ -45,6 +66,8 @@ from cryovit_tpu_torch import require_bf16_on_cuda, resolve_device
 from cryovit_tpu_torch.config import PRECISION_DTYPES
 from cryovit_tpu_torch.models.base import BaseModel, clip_gradients, prediction_mask
 from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
+from cryovit_tpu_torch.parallel.mesh import Mesh, Sharding, make_mesh, replicate
+from cryovit_tpu_torch.parallel.spatial import batch_divides, place_batch, warn_replicated
 from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
 from cryovit_tpu_torch.types import BatchedModelResult, TomogramBatch, TomogramData
 
@@ -67,7 +90,10 @@ class Trainer:
     """Explicit training loop with the reference trainer's config surface.
 
     ``device`` is where the model trains: a GPU unless the caller names the
-    CPU (:func:`cryovit_tpu_torch.resolve_device`).
+    CPU (:func:`cryovit_tpu_torch.resolve_device`). ``mesh_shape`` (e.g.
+    ``{"data": -1}``) trains on a mesh over the process group
+    (:func:`~cryovit_tpu_torch.parallel.make_mesh`, which initialises it from
+    a ``torchrun`` environment); each rank's device is then the mesh's.
     """
 
     def __init__(
@@ -84,6 +110,7 @@ class Trainer:
         loggers: Sequence[Any] = (),
         seed: int = 42,
         device: torch.device | str | None = None,
+        mesh_shape: dict[str, int] | None = None,
     ) -> None:
         self.precision = precision
         self.max_epochs = max_epochs or 1
@@ -99,17 +126,114 @@ class Trainer:
         self.device = resolve_device(device)
         require_bf16_on_cuda(self.device, PRECISION_DTYPES[precision],
                              f"Trainer(precision={precision!r})", BF16_KERNELS)
+        self.mesh: Mesh | None = make_mesh(mesh_shape, device=self.device) if mesh_shape else None
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.model: BaseModel | None = None
         self.module: nn.Module | None = None
         self.optimizer: torch.optim.Optimizer | None = None
         self.step = 0
         self.logged: dict[str, float] = {}
 
+    # ---- the mesh -----------------------------------------------------------
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _multi(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _dp_eligible(self, inputs, label) -> bool:
+        """Whether a batch can take the data-parallel step: plain tensor
+        inputs (SAM2's dicts take the replicated step) whose batch axis
+        splits over the mesh (:func:`batch_divides`)."""
+        if not self._multi() or isinstance(inputs, dict) or not hasattr(inputs, "shape"):
+            return False
+        return batch_divides(self.mesh, inputs, label)
+
+    def place(
+        self, model: BaseModel, batch: TomogramBatch, items, replicated: bool = False,
+        labels: bool = True,
+    ) -> tuple[Any, torch.Tensor | None, Sharding | None]:
+        """This rank's module input and labels (None unless ``labels``) for a
+        host batch, on the device, and how they lie on the mesh (None
+        without one): the batch axis, else the depth axis (families with a
+        depth-sharded forward), else the whole batch (``replicated`` asks
+        for that). A family with ``prepare_inputs`` builds its input from
+        the whole batch, as in JAX, and keeps its slice when that input is a
+        tensor."""
+        if not self._multi():
+            data, label = self.to_device(batch, labels)
+            return self.prepare(model, data, items), label, None
+        whole = Sharding(self.mesh, None)
+        if replicated:
+            data, label = self.to_device(batch, labels)
+            return self.prepare(model, data, items), label, whole
+        if getattr(model, "prepare_inputs", None) is None:
+            placed, sharding = place_batch(batch, self.mesh, depth=model.depth_shardable)
+            data, label = self.to_device(placed, labels)
+            return data, label, sharding
+        data, label = self.to_device(batch, labels)
+        inputs = model.prepare_inputs(data, items)
+        if self._dp_eligible(inputs, label):
+            sharding = Sharding(self.mesh, 0)
+            local = None if label is None else sharding.local(label)
+            return sharding.local(inputs), local, sharding
+        if not batch_divides(self.mesh, batch.data):
+            warn_replicated(batch, self.mesh, depth=False)
+        return inputs, label, whole
+
+    @staticmethod
+    def _step_mesh(sharding: Sharding | None) -> Mesh | None:
+        """The mesh the losses and metrics sum over: that of a sharded batch."""
+        return sharding.mesh if sharding is not None and sharding.dim is not None else None
+
+    @staticmethod
+    def _forward(model: BaseModel, module: nn.Module, data, sharding: Sharding | None):
+        if sharding is not None and sharding.dim == 1:
+            return model.apply_with_aux(module, data, mesh=sharding.mesh)
+        return model.apply_with_aux(module, data)
+
+    def _reduce_gradients(self, sharding: Sharding | None) -> None:
+        """The gradients of the optimizer's parameters summed over the ranks
+        of a sharded batch, or rank 0's for a replicated one."""
+        if sharding is None or sharding.mesh.size == 1:
+            return
+        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            if sharding.dim is None:
+                sharding.mesh.broadcast_flat_(grads)
+            else:
+                sharding.mesh.all_reduce_flat_(grads)
+
+    @staticmethod
+    def _gather(preds: torch.Tensor, sharding: Sharding | None) -> torch.Tensor:
+        """A sharded batch's predictions whole, on every rank."""
+        if sharding is None or sharding.dim is None:
+            return preds
+        return sharding.mesh.gather(preds, sharding.dim)
+
+    def _callbacks(self, hook: str) -> list:
+        """The callbacks with ``hook`` (rank 0 only: they write)."""
+        if not self.is_main:
+            return []
+        return [cb for cb in self.callbacks if hasattr(cb, hook)]
+
     # ---- steps ------------------------------------------------------------
 
-    def to_device(self, batch: TomogramBatch) -> tuple[torch.Tensor, torch.Tensor]:
-        """A host batch's data and labels on the training device."""
+    def to_device(
+        self, batch: TomogramBatch, labels: bool = True
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """A host batch's data and labels (None unless ``labels``) on the
+        training device."""
         data = torch.from_numpy(np.ascontiguousarray(batch.data)).to(self.device)
+        if not labels:
+            return data, None
         label = torch.from_numpy(np.ascontiguousarray(batch.label)).to(self.device)
         return data, label
 
@@ -120,16 +244,20 @@ class Trainer:
         prepare = getattr(model, "prepare_inputs", None)
         return prepare(data, items) if prepare is not None else data
 
-    def train_step(self, data, label: torch.Tensor) -> dict[str, torch.Tensor]:
+    def train_step(
+        self, data, label: torch.Tensor, sharding: Sharding | None = None
+    ) -> dict[str, torch.Tensor]:
         """One optimizer step on a batch already on the device (``data`` as
-        :meth:`prepare` gives it); returns the step's logs as device scalars
-        (nothing is synchronised here)."""
+        :meth:`prepare` gives it, or this rank's part as :meth:`place` gives
+        it with its ``sharding``); returns the step's logs as device scalars
+        (nothing is synchronised here, but the collectives of a mesh)."""
         module, model, optimizer = self.module, self.model, self.optimizer
+        mesh = self._step_mesh(sharding)
         module.train()
         optimizer.zero_grad(set_to_none=True)
-        preds, aux = model.apply_with_aux(module, data)
+        preds, aux = self._forward(model, module, data, sharding)
         mask = prediction_mask(label)
-        losses = model.compute_losses(preds, label, mask, aux=aux)
+        losses = model.compute_losses(preds, label, mask, aux=aux, mesh=mesh)
         losses["total"].backward()
         # a parameter the loss did not reach still takes AdamW's weight
         # decay, as optax applies it to a zero gradient
@@ -137,6 +265,7 @@ class Trainer:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        self._reduce_gradients(sharding)
         # the reference logs the post-clip norm; the pre-clip one is what
         # explosion monitoring needs, so both are logged
         pre, post = clip_gradients(
@@ -144,7 +273,7 @@ class Trainer:
         )
         optimizer.step()
         with torch.no_grad():
-            metrics = model.compute_metrics(preds.detach(), label, mask)
+            metrics = model.compute_metrics(preds.detach(), label, mask, mesh=mesh)
         logs = {f"train_{k}": v.detach() for k, v in losses.items()}
         logs.update({f"train_{k}": v for k, v in metrics.items()})
         logs["grad_norm_preclip"] = pre
@@ -161,11 +290,13 @@ class Trainer:
         sums: dict[str, float] = {}
         count = 0
         for batch, items in loader:
-            data, label = self.to_device(batch)
-            preds, aux = model.apply_with_aux(module, self.prepare(model, data, items))
+            data, label, sharding = self.place(model, batch, items)
+            mesh = self._step_mesh(sharding)
+            preds, aux = self._forward(model, module, data, sharding)
             mask = prediction_mask(label)
-            losses = model.compute_losses(preds, label, mask, aux=aux)
-            for k, v in {**losses, **model.compute_metrics(preds, label, mask)}.items():
+            losses = model.compute_losses(preds, label, mask, aux=aux, mesh=mesh)
+            metrics = model.compute_metrics(preds, label, mask, mesh=mesh)
+            for k, v in {**losses, **metrics}.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             count += 1
         return {k: v / max(count, 1) for k, v in sums.items()}
@@ -206,18 +337,23 @@ class Trainer:
     @torch.inference_mode()
     def eval_step(
         self, module: nn.Module, model: BaseModel, data, label: torch.Tensor,
-        aux_mask: torch.Tensor | None = None,
+        aux_mask: torch.Tensor | None = None, sharding: Sharding | None = None,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         """Predictions, losses and metrics of a batch on the device (``data``
-        as :meth:`prepare` gives it)."""
-        preds, aux = model.apply_with_aux(module, data)
+        as :meth:`prepare` gives it, or this rank's part as :meth:`place`
+        gives it with its ``sharding``: the losses and metrics are then
+        global, the predictions this rank's)."""
+        mesh = self._step_mesh(sharding)
+        preds, aux = self._forward(model, module, data, sharding)
         mask = prediction_mask(label, aux_mask)
-        losses = model.compute_losses(preds, label, mask, aux=aux)
-        return preds, losses, model.compute_metrics(preds, label, mask)
+        losses = model.compute_losses(preds, label, mask, aux=aux, mesh=mesh)
+        return preds, losses, model.compute_metrics(preds, label, mask, mesh=mesh)
 
     @torch.inference_mode()
-    def predict_step(self, module: nn.Module, data, model: BaseModel) -> torch.Tensor:
-        return model.apply(module, data)
+    def predict_step(
+        self, module: nn.Module, data, model: BaseModel, sharding: Sharding | None = None
+    ) -> torch.Tensor:
+        return self._forward(model, module, data, sharding)[0]
 
     def test(
         self, model: BaseModel, datamodule, module: nn.Module | None = None
@@ -229,15 +365,14 @@ class Trainer:
         module = self._eval_module(module)
         results = []
         for batch, items in datamodule.test_loader():
-            data, label = self.to_device(batch)
-            preds, losses, metrics = self.eval_step(
-                module, model, self.prepare(model, data, items), label,
-                self._aux_mask(model, batch, items),
-            )
+            aux_mask = self._aux_mask(model, batch, items)
+            # the mito-masked path takes the replicated step, as in JAX
+            data, label, sharding = self.place(model, batch, items, replicated=aux_mask is not None)
+            preds, losses, metrics = self.eval_step(module, model, data, label, aux_mask, sharding)
+            preds = self._gather(preds, sharding)
             result = self._build_result(preds.float().cpu().numpy(), losses, metrics, items)
-            for cb in self.callbacks:
-                if hasattr(cb, "on_test_batch_end"):
-                    cb.on_test_batch_end(result)
+            for cb in self._callbacks("on_test_batch_end"):
+                cb.on_test_batch_end(result)
             results.append(result)
         return results
 
@@ -254,12 +389,11 @@ class Trainer:
             raise ValueError("Trainer.predict needs the model family: pass model= or fit first")
         results = []
         for batch, items in datamodule.predict_loader():
-            data = torch.from_numpy(np.ascontiguousarray(batch.data)).to(self.device)
-            preds = self.predict_step(module, self.prepare(model, data, items), model)
+            data, _, sharding = self.place(model, batch, items, labels=False)
+            preds = self._gather(self.predict_step(module, data, model, sharding), sharding)
             result = self._build_result(preds.float().cpu().numpy(), {}, {}, items)
-            for cb in self.callbacks:
-                if hasattr(cb, "on_predict_batch_end"):
-                    cb.on_predict_batch_end(result)
+            for cb in self._callbacks("on_predict_batch_end"):
+                cb.on_predict_batch_end(result)
             results.append(result)
         return results
 
@@ -293,7 +427,7 @@ class Trainer:
     def _log(self, step: int, logs: dict[str, Any]) -> None:
         scalars = {k: float(v) for k, v in logs.items()}
         self.logged = scalars
-        for lg in self.loggers:
+        for lg in self.loggers if self.is_main else ():
             if hasattr(lg, "log_scalars"):
                 lg.log_scalars(scalars, step)
 
@@ -355,6 +489,9 @@ class Trainer:
             optimizer.load_state_dict(ckpt["optimizer"])
             start_epoch, self.step = int(ckpt["epoch"]), int(ckpt["step"])
             logger.info("resumed from %s at epoch %d", ckpt_path, start_epoch)
+        if self.mesh is not None:  # every rank starts from rank 0's state
+            replicate(module, self.mesh)
+            replicate(optimizer, self.mesh)
 
         swa = next((c for c in self.callbacks if isinstance(c, StochasticWeightAveraging)), None)
         for epoch in range(start_epoch, self.max_epochs):
@@ -363,8 +500,8 @@ class Trainer:
             model.train_mode = True  # SAM2 draws its cond slices by phase
             logs: dict[str, Any] = {}
             for batch, items in train_loader:
-                data, label = self.to_device(batch)
-                logs = self.train_step(self.prepare(model, data, items), label)
+                data, label, sharding = self.place(model, batch, items)
+                logs = self.train_step(data, label, sharding)
                 self.step += 1
                 if self.step % self.log_every_n_steps == 0:
                     self._log(self.step, logs)
@@ -379,11 +516,11 @@ class Trainer:
 
             if swa is not None:  # frozen parameters are not averaged: they stay bit for bit
                 swa.on_train_epoch_end(epoch, self.max_epochs, self._trained(module))
-            for cb in self.callbacks:
-                if hasattr(cb, "on_train_epoch_end") and cb is not swa:
+            for cb in self._callbacks("on_train_epoch_end"):
+                if cb is not swa:
                     cb.on_train_epoch_end(epoch, epoch_logs)
 
-            if self.enable_checkpointing and self.default_root_dir is not None:
+            if self.enable_checkpointing and self.default_root_dir is not None and self.is_main:
                 self.default_root_dir.mkdir(parents=True, exist_ok=True)
                 torch.save(
                     {"model": module.state_dict(), "optimizer": optimizer.state_dict(),

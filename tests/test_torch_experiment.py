@@ -45,7 +45,6 @@ from cryovit_tpu.run.eval_model import run_trainer as jax_eval_trainer
 from cryovit_tpu.train.checkpoint import load_weights, save_weights
 from cryovit_tpu_torch import data as port_data
 from cryovit_tpu_torch import training
-from cryovit_tpu_torch.composer import ConfigError
 from cryovit_tpu_torch.config import compose, validate_dino_config, validate_experiment_config
 from cryovit_tpu_torch.convert import dinov2_from_jax
 from cryovit_tpu_torch.data.datamodules import kfold_assignments
@@ -423,10 +422,15 @@ def test_entry_points_default_to_the_gpu(experiment_env, monkeypatch):
 
 
 def test_trainer_refuses_a_mesh_and_drops_donation(experiment_env, tmp_path):
+    """``trainer.mesh_shape`` now reaches the Trainer: with no process group
+    a world of one builds a mesh of size one (tests/test_torch_parallel.py
+    runs the multi-rank meshes); ``donate_state`` is still dropped."""
     ov = _overrides(experiment_env, tmp_path, "cryovit", "logger={}")
-    with pytest.raises(ConfigError, match="A10"):
-        build_trainer(compose("train_model", ov + ["trainer.mesh_shape={data: -1}"]), "cpu")
+    meshed = build_trainer(compose("train_model", ov + ["trainer.mesh_shape={data: -1}"]), "cpu")
+    assert meshed.mesh.shape == {"data": 1} and meshed.mesh.size == 1 and meshed.is_main
+    assert meshed.device == torch.device("cpu")
     trainer = build_trainer(compose("train_model", ov + ["trainer.donate_state=false"]), "cpu")
+    assert trainer.mesh is None
     assert trainer.precision == "f32" and trainer.max_epochs == 50
     assert [type(c).__name__ for c in trainer.callbacks] == ["ProgressBar",
                                                              "StochasticWeightAveraging"]
