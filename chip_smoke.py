@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parallel-limits   # only the parallel limits' readings
+    python3 chip_smoke.py --parallel-limits "unet3d depth-sharded"   # of one step
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -192,9 +193,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    parameters bit for bit equal; four planted faults (gradients averaged
    instead of summed, zero halos, GroupNorm statistics over each slab
    alone, features gathered into the other rank's slot) must read above
-   those limits.
-   Launches per rank (exactly 12/6/2/2 of rows 4-7 a step, 40 of row 1 an
-   extraction), ms per step, peak GiB per rank against the single process.
+   those limits. Then UNet3D's depth-sharded train step at full width (the
+   UNet3D training cell's 128×512×512 blob voxels, 64 slices a rank: halos
+   at every level, InstanceNorm statistics over both ranks, rows 4 and 5 on
+   each rank's halo'd slab): the Dice loss, each level's gradient as one
+   vector (direction and size, as the SAM2 train reference holds its
+   groups) and the gathered probabilities of the starting weights against
+   the single process, within limits set the same way, which two planted
+   faults (the halos of one level-2 conv zero, InstanceNorm statistics
+   over each slab alone) must read above.
+   Launches per rank (exactly 12/6/2/2 of rows 4-7 a CryoVIT step, 5/3 of
+   rows 4/5 a UNet3D step, 40 of row 1 an extraction), ms per step, peak
+   GiB per rank against the single process.
 
 Launch counters are zeroed just before each main path and read just after;
 every kernel of a path must have run (the SAM path: exactly the counts the
@@ -3625,10 +3635,29 @@ PARALLEL_FAULTS = {
     "zero halos": "every halo of the depth-dilated convs zero",
     "local norms": "GroupNorm's statistics over each rank's own slab",
     "swapped slots": "each rank's features gathered into the other rank's slot",
+    "level-2 zero halos": "the halos of UNet3D's second level-2 analysis conv zero",
+    "local instance norms": "UNet3D's InstanceNorm statistics over each rank's own slab",
 }
 # `chip_smoke.py --parallel-limits`: the seeds whose sound and faulty
 # readings the limits above are set between
 PARALLEL_LIMIT_SEEDS = (23, 24, 25, 26, 27)
+# UNet3D's depth-sharded step: its gradients held level by level, each
+# level's leaves as one vector (_group_agreement), and its faults
+UNET_PARALLEL = "unet3d depth-sharded"
+UNET_LEVELS = {"level 1": ("analysis_layers.0.", "synthesis_layers.2.", "output_layer."),
+               "level 2": ("analysis_layers.1.", "synthesis_layers.1."),
+               "level 3": ("analysis_layers.2.", "synthesis_layers.0."),
+               "bottom": ("bottom_layer.",)}
+# limits against the single process on the card, each the geometric mean of
+# the largest sound reading and the smallest reading of the planted faults
+# it separates, over PARALLEL_LIMIT_SEEDS (`--parallel-limits "unet3d
+# depth-sharded"`; NVIDIA H100 80GB HBM3, 700.00 W): |Δ Dice loss| 3.58e-7
+# vs level-2 zero halos 8.29e-6; max|Δ probability| of the starting weights
+# 0.0351 vs zero halos 0.667 (local instance norms, 0.122, lie 3.5× above
+# sound: the other readings separate them); the worst level's 1 − cosine
+# 4.57e-4 vs local norms 3.10e-3, its |ln norm ratio| 5.25e-4 vs 4.02e-3
+UNET_PARALLEL_LOSS, UNET_PARALLEL_PROBS, UNET_PARALLEL_COS, UNET_PARALLEL_SIZE = (
+    1.7e-6, 0.15, 1.2e-3, 1.45e-3)
 
 
 def _parallel_crops(dev: torch.device, seed: int = PARALLEL_SEED):
@@ -3662,11 +3691,12 @@ def _parallel_stack():
 @contextlib.contextmanager
 def _planted(fault: str | None):
     """One of PARALLEL_FAULTS planted into the port for the block's extent."""
-    from cryovit_tpu_torch.models import cryovit
+    from cryovit_tpu_torch.models import cryovit, unet3d
     from cryovit_tpu_torch.parallel.mesh import Mesh
     from cryovit_tpu_torch.train.loop import Trainer
 
-    saved = (Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm)
+    saved = (Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm,
+             unet3d._inorm)
     if fault == "averaged":
         def averaged(self, sharding):
             saved[0](self, sharding)
@@ -3689,10 +3719,24 @@ def _planted(fault: str | None):
             other = dataclasses.replace(self, rank=self.size - 1 - self.rank)
             return saved[2](other, local, dim)
         Mesh.gather = swapped
+    elif fault == "level-2 zero halos":
+        def zero_level2(x, mesh, dim, d):
+            # the only channels-first exchange of 64 channels at half width
+            if dim == 2 and x.shape[1] == 64 and x.shape[-1] == SIDE // 2:
+                shape = list(x.shape)
+                shape[dim] = d
+                return torch.cat([x.new_zeros(shape), x, x.new_zeros(shape)], dim)
+            return saved[1](x, mesh, dim, d)
+        cryovit.halo_exchange = zero_level2
+    elif fault == "local instance norms":
+        def local_inorm(x, norm, channel_dim=1, mesh=None):
+            return saved[4](x, norm, channel_dim)
+        unet3d._inorm = local_inorm
     try:
         yield
     finally:
-        Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm = saved
+        (Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm,
+         unet3d._inorm) = saved
 
 
 def _parallel_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SEED) -> dict:
@@ -3746,6 +3790,93 @@ def _parallel_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SE
             times.append(start.elapsed_time(stop))
         out["ms"] = times
     return out
+
+
+def _parallel_unet_batch(seed: int = PARALLEL_SEED):
+    """One crop of the UNet3D training cell as the loader gives it: a
+    TRAIN_DEPTH x SIDE² blob tomogram's raw voxels (uint8 / 255, f32) and
+    its labels (the first 16 slices unlabeled), drawn from ``seed``."""
+    import numpy as np
+
+    from cryovit_tpu_torch.types import TomogramBatch
+
+    tomo, label = blob_tomogram(np.random.default_rng(seed), TRAIN_DEPTH, SIDE)
+    return TomogramBatch((tomo.astype(np.float32) / 255.0)[None, ..., None], label[None],
+                         np.array([TRAIN_DEPTH]))
+
+
+def _parallel_unet_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SEED) -> dict:
+    """One UNet3D train step at full width (bf16 on f32 masters, the weights
+    drawn from ``seed``) on ``batch`` as ``Trainer.place`` lays it out over
+    the mesh of ``mesh_shape`` (None: the single process), after the
+    probabilities of the starting weights as ``Trainer.predict`` places and
+    gathers them: the probabilities, the step's logs, gradients, launches
+    and peak memory (above what the process held before), with ``timed``
+    the device ms (CUDA events) of that many more steps."""
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.config import MODELS, TrainConfig
+    from cryovit_tpu_torch.models.unet3d import random_unet3d_state_dict
+    from cryovit_tpu_torch.run.train_model import build_model
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    held = torch.cuda.memory_allocated()
+    model = build_model(TrainConfig(label_key="mito", model=MODELS["unet3d"]))
+    trainer = Trainer(precision="bf16", device=dev, mesh_shape=mesh_shape,
+                      enable_model_summary=False)
+    module = model.build_module(random_unet3d_state_dict(torch.Generator().manual_seed(seed)),
+                                trainer.device)
+    trainer.model, trainer.module, trainer.optimizer = model, module, model.make_optimizer(module)
+    with _planted(fault):
+        data, label, sharding = trainer.place(model, batch, None)
+        probs = trainer._gather(trainer.predict_step(module, data, model, sharding), sharding)
+        probs = probs.cpu()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        logs = trainer.train_step(data, label, sharding)
+        torch.cuda.synchronize()
+        out = {
+            "probs": probs, "logs": {k: float(v) for k, v in logs.items()},
+            "grads": {n: p.grad.float().cpu() for n, p in module.named_parameters()},
+            "launches": kernels.launch_counts(),
+            "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+            "slab": tuple(data.shape), "dim": None if sharding is None else sharding.dim,
+        }
+        if trainer.mesh is not None:  # rank 0's parameters, bit for bit
+            out["identical"] = all(
+                torch.equal(p, trainer.mesh.broadcast_(p.detach().clone()))
+                for p in module.parameters())
+        times = []
+        for _ in range(timed):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.train_step(data, label, sharding)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        out["ms"] = times
+    return out
+
+
+def _unet_agreement(got: dict, want: dict) -> dict:
+    """A UNet3D step against the single process's: |Δ Dice loss|, max|Δ
+    probability| of the starting weights, and each level's gradient as one
+    vector (_group_agreement: 1 − cosine, |ln norm ratio|), with the worst
+    level of each."""
+    levels = {level: _group_agreement(got["grads"], want["grads"],
+                                      [n for n in want["grads"] if n.startswith(prefixes)])
+              for level, prefixes in UNET_LEVELS.items()}
+    cos_at = max(levels, key=lambda k: levels[k][0])
+    size_at = max(levels, key=lambda k: levels[k][1])
+    return {"loss": abs(got["logs"]["train_dice_loss"] - want["logs"]["train_dice_loss"]),
+            "probs": (got["probs"] - want["probs"]).abs().max().item(),
+            "cos": levels[cos_at][0], "cos_at": cos_at,
+            "size": levels[size_at][1], "size_at": size_at, "levels": levels}
+
+
+def _unet_within(agreement: dict) -> bool:
+    return (agreement["loss"] <= UNET_PARALLEL_LOSS and agreement["probs"] <= UNET_PARALLEL_PROBS
+            and agreement["cos"] <= UNET_PARALLEL_COS and agreement["size"] <= UNET_PARALLEL_SIZE)
 
 
 def _parallel_extract(dev, mesh, fault=None, timed=False) -> dict:
@@ -3820,42 +3951,67 @@ def _feature_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 # the train steps of the parallel phase and the faults planted into each
 PARALLEL_STEPS = (("data-parallel", ("averaged",)),
-                  ("depth-sharded", ("averaged", "zero halos", "local norms")))
+                  ("depth-sharded", ("averaged", "zero halos", "local norms")),
+                  (UNET_PARALLEL, ("level-2 zero halos", "local instance norms")))
+# what of a step's run the single process's reference keeps
+REFERENCE_KEYS = {"data-parallel": ("logs", "grads", "updates"),
+                  "depth-sharded": ("logs", "grads", "updates"),
+                  UNET_PARALLEL: ("logs", "grads", "probs")}
 
 
-def _parallel_batches(dev: torch.device, seed: int = PARALLEL_SEED) -> dict:
-    """The batches of PARALLEL_STEPS: the two crops, and the first alone."""
-    crops = _parallel_crops(dev, seed)
-    one = dataclasses.replace(crops, data=crops.data[:1], label=crops.label[:1],
-                              num_slices=crops.num_slices[:1])
-    return {"data-parallel": crops, "depth-sharded": one}
+def _parallel_batches(dev: torch.device, seed: int = PARALLEL_SEED, steps=None) -> dict:
+    """The batches of PARALLEL_STEPS (those named in ``steps``, all when
+    None): the two crops, the first alone, UNet3D's crop."""
+    steps = steps or [what for what, _ in PARALLEL_STEPS]
+    out = {}
+    if "data-parallel" in steps or "depth-sharded" in steps:
+        crops = _parallel_crops(dev, seed)
+        out["data-parallel"] = crops
+        out["depth-sharded"] = dataclasses.replace(
+            crops, data=crops.data[:1], label=crops.label[:1], num_slices=crops.num_slices[:1])
+    if UNET_PARALLEL in steps:
+        out[UNET_PARALLEL] = _parallel_unet_batch(seed)
+    return {what: out[what] for what in steps}
 
 
-def _limit_readings(dev: torch.device, tmp: str, seeds) -> dict:
+def _run_step(what: str, dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SEED) -> dict:
+    step = _parallel_unet_step if what == UNET_PARALLEL else _parallel_step
+    return step(dev, batch, mesh_shape, fault, timed, seed)
+
+
+def _agreement(what: str, got: dict, want: dict) -> dict:
+    return (_unet_agreement if what == UNET_PARALLEL else _step_agreement)(got, want)
+
+
+
+def _limit_readings(dev: torch.device, tmp: str, seeds, steps) -> dict:
     """A rank's readings for ``--parallel-limits``: for each seed and step
-    of PARALLEL_STEPS, two sound runs and each planted fault against the
-    single process's first run in ``tmp/single<seed>.pt``."""
+    of PARALLEL_STEPS named in ``steps``, two sound runs and each planted
+    fault against the single process's first run in
+    ``tmp/single<seed>.pt``."""
     out = {}
     for seed in seeds:
         ref = torch.load(f"{tmp}/single{seed}.pt", weights_only=False)
-        batches = _parallel_batches(dev, seed)
+        batches = _parallel_batches(dev, seed, steps)
         out[seed] = {}
         for what, faults in PARALLEL_STEPS:
+            if what not in steps:
+                continue
+
             def step(fault=None):
-                return _step_agreement(
-                    _parallel_step(dev, batches[what], {"data": -1}, fault, seed=seed),
-                    ref[what][0])
+                return _agreement(what, _run_step(what, dev, batches[what], {"data": -1}, fault,
+                                                  seed=seed), ref[what][0])
             out[seed][what] = {"sound": [step(), step()], "faults": {f: step(f) for f in faults}}
             torch.cuda.empty_cache()
     return out
 
 
-def _parallel_rank(rank: int, world: int, tmp: str, device: str, seeds=()) -> None:
+def _parallel_rank(rank: int, world: int, tmp: str, device: str, seeds=(), steps=()) -> None:
     """One rank of the parallel phase: a gloo group on the one card, the
-    data-parallel step, the depth-sharded step and the sharded extraction,
-    each against the single process's results in ``tmp``, and the planted
-    faults; the summary to ``tmp/rank<rank>.pt``. With ``seeds``, the
-    readings of ``--parallel-limits`` (_limit_readings) instead."""
+    train steps of PARALLEL_STEPS and the sharded extraction, each against
+    the single process's results in ``tmp``, and the planted faults; the
+    summary to ``tmp/rank<rank>.pt``. With ``seeds``, the readings of
+    ``--parallel-limits`` (_limit_readings) for ``steps`` instead."""
     import torch.distributed as dist
 
     from cryovit_tpu_torch import kernels
@@ -3869,20 +4025,21 @@ def _parallel_rank(rank: int, world: int, tmp: str, device: str, seeds=()) -> No
     try:
         kernels.load_library()  # built by the parent: this loads it
         if seeds:
-            torch.save(_limit_readings(dev, tmp, seeds), f"{tmp}/rank{rank}.pt")
+            torch.save(_limit_readings(dev, tmp, seeds, steps), f"{tmp}/rank{rank}.pt")
             return
         ref = torch.load(f"{tmp}/single.pt", weights_only=False)
         batches = _parallel_batches(dev)
         out = {}
         for what, faults in PARALLEL_STEPS:
             batch = batches[what]
-            run = _parallel_step(dev, batch, {"data": -1}, timed=PARALLEL_TIMED)
+            run = _run_step(what, dev, batch, {"data": -1}, timed=PARALLEL_TIMED)
             out[what] = {
-                "agreement": _step_agreement(run, ref[what]),
-                "faults": {f: _step_agreement(_parallel_step(dev, batch, {"data": -1}, f),
-                                              ref[what]) for f in faults},
+                "agreement": _agreement(what, run, ref[what]),
+                "faults": {f: _agreement(what, _run_step(what, dev, batch, {"data": -1}, f),
+                                         ref[what]) for f in faults},
                 **{k: run[k] for k in ("launches", "peak_gib", "ms", "slab", "dim", "identical")},
             }
+            del run
             torch.cuda.empty_cache()
         mesh = make_mesh({"data": -1}, device=dev)
         run = _parallel_extract(dev, mesh, timed=True)
@@ -3907,8 +4064,10 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
     crops of the training cell, one a rank), the depth-sharded step (one
     crop, TRAIN_DEPTH / PARALLEL_WORLD slices a rank) and the sharded DINOv2
     extraction of the serving tomogram (SLICE_BATCH / PARALLEL_WORLD slices
-    a rank), with planted faults that must read above the limits; launches,
-    ms and peak memory per rank. Returns each rank's launches."""
+    a rank) and UNet3D's depth-sharded step (the UNet3D training cell's
+    crop, TRAIN_DEPTH / PARALLEL_WORLD slices a rank), with planted faults
+    that must read above the limits; launches, ms and peak memory per rank.
+    Returns each rank's launches."""
     from cryovit_tpu_torch import kernels
 
     name = gpu_name_and_power()
@@ -3917,7 +4076,7 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
     batches = _parallel_batches(dev)
     ref = {}
     for what, batch in batches.items():
-        ref[what] = _parallel_step(dev, batch, None, timed=PARALLEL_TIMED)
+        ref[what] = _run_step(what, dev, batch, None, timed=PARALLEL_TIMED)
         torch.cuda.empty_cache()
     ref["extraction"] = _parallel_extract(dev, None, timed=True)
     torch.save(ref, tmp / "single.pt")
@@ -3969,6 +4128,38 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
     depth_ratio = max(r["depth-sharded"]["peak_gib"] for r in ranks) / ref["depth-sharded"]["peak_gib"]
     log("parallel", f"depth-sharded peak per rank / single process: {depth_ratio:.3f} ({name})")
 
+    single = ref[UNET_PARALLEL]
+    log("parallel", f"{UNET_PARALLEL}: single process slab {single['slab']}, launches "
+        f"{ {k: n for k, n in single['launches'].items() if n} }, peak "
+        f"{single['peak_gib']:.2f} GiB, ms {' '.join(f'{t:.2f}' for t in single['ms'])} "
+        f"({name})")
+
+    def unet_line(a):
+        levels = ", ".join(f"{k} {c:.3g}/{z:.3g}" for k, (c, z) in a["levels"].items())
+        return (f"|dloss| {a['loss']:.3g} (limit {UNET_PARALLEL_LOSS}), max|dprob| "
+                f"{a['probs']:.3g} (limit {UNET_PARALLEL_PROBS}), gradients by level (1 - cos / "
+                f"|ln norm ratio|) {levels} (limits {UNET_PARALLEL_COS} / {UNET_PARALLEL_SIZE})")
+
+    for r, rank in enumerate(ranks):
+        run = rank[UNET_PARALLEL]
+        a = run["agreement"]
+        log("parallel", f"{UNET_PARALLEL} rank {r}: slab {run['slab']} (split dim {run['dim']}), "
+            f"launches { {k: n for k, n in run['launches'].items() if n} }, step ms "
+            f"{' '.join(f'{t:.2f}' for t in run['ms'])}, peak {run['peak_gib']:.2f} GiB "
+            f"({run['peak_gib'] / single['peak_gib']:.3f} of the single process's) ({name})")
+        log("parallel", f"{UNET_PARALLEL} rank {r} against the single process: {unet_line(a)}")
+        checks[f"{UNET_PARALLEL} rank {r} takes the depth-sharded step"] = run["dim"] == 1
+        checks[f"{UNET_PARALLEL} rank {r} agrees with the single process"] = _unet_within(a)
+        checks[f"{UNET_PARALLEL} rank {r} launches {UNET_STEP_NONZERO} and nothing else"] = (
+            run["launches"] == UNET_STEP_LAUNCHES)
+        for fault, f in run["faults"].items():
+            log("parallel", f"{UNET_PARALLEL} rank {r}, planted fault ({PARALLEL_FAULTS[fault]}): "
+                f"{unet_line(f)}")
+            checks[f"{UNET_PARALLEL} rank {r}: the planted fault '{fault}' reads above the "
+                   "limits"] = not _unet_within(f)
+    checks[f"{UNET_PARALLEL}: every rank's parameters equal rank 0's after the step"] = all(
+        rank[UNET_PARALLEL]["identical"] for rank in ranks)
+
     single = ref["extraction"]
     log("parallel", f"extraction single process: launches "
         f"{ {k: n for k, n in single['launches'].items() if n} }, peak {single['peak_gib']:.2f} "
@@ -3989,67 +4180,79 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
             {k: n for k, n in run["launches"].items() if n} == {"flash_attention": 40})
     _report_checks(checks, "parallel phase")
     per_rank = [{k: sum(rank[what]["launches"][k]
-                        for what in ("data-parallel", "depth-sharded", "extraction"))
+                        for what in ("data-parallel", "depth-sharded", UNET_PARALLEL, "extraction"))
                  for k in kernels.KERNELS} for rank in ranks]
     return per_rank
 
 
 LIMIT_KEYS = ("loss", "grad", "grad_median", "update", "grad_norm")
+UNET_LIMIT_KEYS = ("loss", "probs", "cos", "size")
 
 
-def parallel_limits(dev: torch.device, workdir: Path) -> dict:
-    """``chip_smoke.py --parallel-limits``: the readings PARALLEL_LOSS and
-    PARALLEL_GRAD are set between. For each of PARALLEL_LIMIT_SEEDS (crops
-    and weights), the single process twice (its second run against its
-    first: the card's own run-to-run spread), then PARALLEL_WORLD ranks on
-    the one card as in ``parallel_phase``: each step of PARALLEL_STEPS
-    twice sound and once with each planted fault, against the single
-    process's first run. Prints every reading and, for each step and
-    reading (LIMIT_KEYS), the largest sound value and each fault's
+def parallel_limits(dev: torch.device, workdir: Path, steps=None) -> dict:
+    """``chip_smoke.py --parallel-limits [step ...]``: the readings the
+    parallel phase's limits are set between. For each of
+    PARALLEL_LIMIT_SEEDS (crops and weights), the single process twice (its
+    second run against its first: the card's own run-to-run spread), then
+    PARALLEL_WORLD ranks on the one card as in ``parallel_phase``: each step
+    of PARALLEL_STEPS (those named in ``steps``, all when None) twice sound
+    and once with each planted fault, against the single process's first
+    run. Prints every reading and, for each step and reading (LIMIT_KEYS,
+    UNET_LIMIT_KEYS for UNet3D's), the largest sound value and each fault's
     smallest; returns that summary."""
     name = gpu_name_and_power()
+    steps = list(steps or [what for what, _ in PARALLEL_STEPS])
     tmp = workdir / "parallel_limits"
     tmp.mkdir()
     spread = {}
     for seed in PARALLEL_LIMIT_SEEDS:
-        batches = _parallel_batches(dev, seed)
+        batches = _parallel_batches(dev, seed, steps)
         ref = {}
         for what, batch in batches.items():
-            first = _parallel_step(dev, batch, None, seed=seed)
-            spread[seed, what] = _step_agreement(_parallel_step(dev, batch, None, seed=seed), first)
-            ref[what] = [{k: first[k] for k in ("logs", "grads", "updates")}]
+            first = _run_step(what, dev, batch, None, seed=seed)
+            spread[seed, what] = _agreement(what, _run_step(what, dev, batch, None, seed=seed),
+                                            first)
+            ref[what] = [{k: first[k] for k in REFERENCE_KEYS[what]}]
             del first
             torch.cuda.empty_cache()
         torch.save(ref, tmp / f"single{seed}.pt")
         del ref, batches
     dev_name = f"{dev.type}:0" if dev.type == "cuda" else dev.type
     torch.multiprocessing.start_processes(
-        _parallel_rank, args=(PARALLEL_WORLD, str(tmp), dev_name, PARALLEL_LIMIT_SEEDS),
+        _parallel_rank, args=(PARALLEL_WORLD, str(tmp), dev_name, PARALLEL_LIMIT_SEEDS, steps),
         nprocs=PARALLEL_WORLD, start_method="spawn")
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(PARALLEL_WORLD)]
 
-    def line(a):
-        return " ".join(f"{k} {a[k]:.4g}" for k in LIMIT_KEYS) + f" (worst at {a['grad_at']})"
+    def keys(what):
+        return UNET_LIMIT_KEYS if what == UNET_PARALLEL else LIMIT_KEYS
+
+    def line(what, a):
+        worst = (f"(worst at {a['cos_at']} / {a['size_at']})" if what == UNET_PARALLEL
+                 else f"(worst at {a['grad_at']})")
+        return " ".join(f"{k} {a[k]:.4g}" for k in keys(what)) + " " + worst
 
     summary = {}
     for what, faults in PARALLEL_STEPS:
+        if what not in steps:
+            continue
         sound, bad = [], {f: [] for f in faults}
         for seed in PARALLEL_LIMIT_SEEDS:
             log("limits", f"{what} seed {seed} single process run 2 vs run 1: "
-                f"{line(spread[seed, what])} ({name})")
+                f"{line(what, spread[seed, what])} ({name})")
             for r, rank in enumerate(ranks):
                 got = rank[seed][what]
                 for i, a in enumerate(got["sound"]):
-                    log("limits", f"{what} seed {seed} rank {r} sound run {i + 1}: {line(a)}")
+                    log("limits", f"{what} seed {seed} rank {r} sound run {i + 1}: "
+                        f"{line(what, a)}")
                     sound.append(a)
                 for f, a in got["faults"].items():
-                    log("limits", f"{what} seed {seed} rank {r} fault '{f}': {line(a)}")
+                    log("limits", f"{what} seed {seed} rank {r} fault '{f}': {line(what, a)}")
                     bad[f].append(a)
         summary[what] = {
             "single_spread_max": {k: max(spread[s_, what][k] for s_ in PARALLEL_LIMIT_SEEDS)
-                                  for k in LIMIT_KEYS},
-            "sound_max": {k: max(a[k] for a in sound) for k in LIMIT_KEYS},
-            **{f"fault_min {f}": {k: min(a[k] for a in v) for k in LIMIT_KEYS}
+                                  for k in keys(what)},
+            "sound_max": {k: max(a[k] for a in sound) for k in keys(what)},
+            **{f"fault_min {f}": {k: min(a[k] for a in v) for k in keys(what)}
                for f, v in bad.items()},
         }
     log("limits", json.dumps({"card": name, "seeds": list(PARALLEL_LIMIT_SEEDS),
@@ -4148,11 +4351,17 @@ def main() -> int:
         return 1
     from cryovit_tpu_torch import kernels
 
-    if sys.argv[1:] == ["--parallel-limits"]:
+    if sys.argv[1:2] == ["--parallel-limits"]:
+        steps = sys.argv[2:]
+        unknown = set(steps) - {what for what, _ in PARALLEL_STEPS}
+        if unknown:
+            print(f"chip_smoke: no parallel step {sorted(unknown)}; the steps are "
+                  f"{[what for what, _ in PARALLEL_STEPS]}", file=sys.stderr)
+            return 2
         log("device", gpu_name_and_power())
         kernels.load_library()
         with tempfile.TemporaryDirectory(prefix="cryovit_smoke_") as tmp:
-            parallel_limits(torch.device("cuda"), Path(tmp))
+            parallel_limits(torch.device("cuda"), Path(tmp), steps)
         return 0
 
     dev = torch.device("cuda")

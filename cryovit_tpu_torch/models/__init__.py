@@ -11,7 +11,12 @@ from cryovit_tpu_torch.models.base import BaseModel, prediction_mask
 from cryovit_tpu_torch.models.cryovit import CryoVIT as CryoVITModule
 from cryovit_tpu_torch.models.cryovit import make_cryovit, random_cryovit_state_dict
 from cryovit_tpu_torch.models.sam2.family import SAM2
-from cryovit_tpu_torch.models.unet3d import PAD_MULTIPLE, make_unet3d, random_unet3d_state_dict
+from cryovit_tpu_torch.models.unet3d import (
+    PAD_MULTIPLE,
+    SLAB_MULTIPLE,
+    make_unet3d,
+    random_unet3d_state_dict,
+)
 from cryovit_tpu_torch.models.unet3d import UNet3D as UNet3DModule
 from cryovit_tpu_torch.types import ModelType
 
@@ -55,6 +60,8 @@ class UNet3D(BaseModel):
     """End-to-end 3D U-Net on raw voxels (reference ``models/unet3d.py``)."""
 
     model_type = ModelType.UNET3D
+    depth_shardable = True
+    depth_multiple = SLAB_MULTIPLE  # each level's slab even under its stride-2 pool
 
     def build_module(
         self,

@@ -94,6 +94,9 @@ class BaseModel:
     # whether the module's forward takes a depth slab and ``mesh=``
     # (parallel/spatial.py); a batch of one tomogram is replicated otherwise
     depth_shardable: bool = False
+    # the depth each rank's slab must be a multiple of (UNet3D: 2 ** pools);
+    # a tomogram whose slabs would not be is replicated
+    depth_multiple: int = 1
 
     def __init__(
         self,

@@ -20,8 +20,12 @@ gives 192 slices, more than the whole depth), which point-to-point halos
 would avoid (ROADMAP B.2 item 14).
 
 Fallback order in :func:`place_batch`: batch axis if divisible, else depth
-axis if divisible (and the model can take it), else replicate with a
-one-time warning.
+axis if divisible (and the model can take it: a family with a depth-sharded
+forward, whose slabs are each a multiple of the depth its forward needs),
+else replicate with a one-time warning. JAX shards the depth whenever it
+divides the mesh, for every model; the port replicates a UNet3D tomogram
+whose slabs its stride-2 pools would split (ROADMAP Queue C, deliberate
+difference 13), with the same numbers.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ __all__ = [
 ]
 
 _warned_replicate = False
+_warned_slab = False
 
 
 def spatial_batch_sharding(mesh: Mesh) -> Sharding:
@@ -97,8 +102,25 @@ def warn_replicated(batch: TomogramBatch, mesh: Mesh, depth: bool = True) -> Non
     )
 
 
+def _warn_slab(batch: TomogramBatch, mesh: Mesh, multiple: int) -> None:
+    """The one-time warning that a depth dividing the mesh is replicated
+    because its slabs are not a multiple of ``multiple``."""
+    global _warned_slab
+    if _warned_slab:
+        return
+    _warned_slab = True
+    n = mesh.shape.get(DATA_AXIS, 1)
+    logger.warning(
+        "batch (B=%d, D=%d): the depth divides the %d-way %r mesh axis, but a slab of %d "
+        "slices is not a multiple of the %d this model's stride-2 depth pools need; "
+        "replicating (redundant compute). Pick bucket depths divisible by %d to avoid this.",
+        batch.data.shape[0], batch.data.shape[1], n, DATA_AXIS, batch.data.shape[1] // n,
+        multiple, n * multiple,
+    )
+
+
 def place_batch(
-    batch: TomogramBatch, mesh: Mesh, depth: bool = True
+    batch: TomogramBatch, mesh: Mesh, depth: bool = True, multiple: int = 1
 ) -> tuple[TomogramBatch, Sharding]:
     """This rank's part of a batch and how it lies: batch axis → depth axis
     → replicate.
@@ -106,15 +128,20 @@ def place_batch(
     At the reference default of batch = 1 the depth axis is sharded, so an
     ``n``-rank mesh does ``1/n`` of the work per rank instead of ``n×``
     redundant compute. ``depth`` False (a model without a depth-sharded
-    forward) skips that branch. Both split branches need the data axis to
-    be the whole mesh (:func:`batch_divides`); otherwise every rank holds
-    the whole batch.
+    forward) skips that branch; ``multiple`` is the depth each rank's slab
+    must be a multiple of (``BaseModel.depth_multiple``: UNet3D's
+    ``2 ** pools``), so the depth must divide by ``n · multiple``. Both
+    split branches need the data axis to be the whole mesh
+    (:func:`batch_divides`); otherwise every rank holds the whole batch.
     """
     if batch_divides(mesh, batch.data):
         sharding = batch_sharding(mesh)
         return _map_batch(batch, sharding.local), sharding
     if depth and _data_is_whole(mesh) and batch.data.shape[1] % mesh.size == 0:
-        return shard_batch_spatial(batch, mesh), spatial_batch_sharding(mesh)
+        if batch.data.shape[1] % (mesh.size * multiple) == 0:
+            return shard_batch_spatial(batch, mesh), spatial_batch_sharding(mesh)
+        _warn_slab(batch, mesh, multiple)
+        return batch, Sharding(mesh, None)
     warn_replicated(batch, mesh, depth)
     return batch, Sharding(mesh, None)
 

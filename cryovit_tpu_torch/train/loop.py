@@ -35,9 +35,10 @@ steps, written out on ``torch.distributed``):
 - every rank iterates the same loader (same seed, same order) and keeps its
   part of each batch (:meth:`Trainer.place`): a slice of the batch axis
   when it divides the mesh (data parallelism), else, for a family with a
-  depth-sharded forward (CryoVIT), a slab of the depth axis, else the whole
-  batch (the replicated step: SAM2's dict inputs, a batch of one for
-  UNet3D or SAM2, the mito-masked test path);
+  depth-sharded forward (CryoVIT, and UNet3D when each slab is a multiple
+  of ``2 ** pools`` slices), a slab of the depth axis, else the whole batch
+  (the replicated step: SAM2's dict inputs, a batch of one for SAM2 or for
+  a UNet3D depth its pools would split, the mito-masked test path);
 - the losses and metrics carry the mesh (global values, equal to the
   single-process ones), and the parameter gradients are summed over the
   ranks (JAX's ``psum(grads)``; averaging, DDP's default, would be wrong by
@@ -160,8 +161,9 @@ class Trainer:
         """This rank's module input and labels (None unless ``labels``) for a
         host batch, on the device, and how they lie on the mesh (None
         without one): the batch axis, else the depth axis (families with a
-        depth-sharded forward), else the whole batch (``replicated`` asks
-        for that). A family with ``prepare_inputs`` builds its input from
+        depth-sharded forward, slabs of a multiple of their
+        ``depth_multiple``), else the whole batch (``replicated`` asks for
+        that). A family with ``prepare_inputs`` builds its input from
         the whole batch, as in JAX, and keeps its slice when that input is a
         tensor."""
         if not self._multi():
@@ -172,7 +174,8 @@ class Trainer:
             data, label = self.to_device(batch, labels)
             return self.prepare(model, data, items), label, whole
         if getattr(model, "prepare_inputs", None) is None:
-            placed, sharding = place_batch(batch, self.mesh, depth=model.depth_shardable)
+            placed, sharding = place_batch(batch, self.mesh, depth=model.depth_shardable,
+                                           multiple=model.depth_multiple)
             data, label = self.to_device(placed, labels)
             return data, label, sharding
         data, label = self.to_device(batch, labels)

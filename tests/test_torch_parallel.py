@@ -21,14 +21,21 @@ are made from numpy seeds; weights come from JAX's init through
   own single-process step (eval step and gathered predictions too);
 - (d) the depth-sharded CryoVIT step at batch 1 over 2 and 4 ranks (halos
   spanning several ranks at 4) against JAX's GSPMD step (loss) and the
-  port's single-process step (every gradient);
-- (e) ``place_batch``'s three branches and its warning;
+  port's single-process step (every gradient); UNet3D's over 2 and 4 ranks
+  (1x32x16x16 voxels: 16 and 8 slices a rank, halos at every level) against
+  JAX's GSPMD step and the port's single process (loss, metrics, every
+  gradient, the gathered predictions), and a depth that divides 4 ranks
+  but not 4 * 2^pools (16 slices) taking the replicated step with its
+  warning; ``Trainer.fit``, ``test`` and ``predict`` of UNet3D on 2 ranks;
+- (e) ``place_batch``'s three branches and its warning, and a model's slab
+  multiple (UNet3D's 8) with its own warning;
 - (f) the sharded ``DinoExtractor`` (batch 3 on 2 ranks: rounded to 4, tail
   padded) against JAX's ``DinoExtractor(mesh=make_mesh({"data": 2}))``, and
   the sharded ``SamFeatureExtractor`` against the port's single process;
 - ``Trainer.fit`` on a depth-sharded mesh of 2 against the single process;
 - (g) planted faults (gradients averaged instead of summed; halos zeroed;
-  GroupNorm's statistics over each slab alone)
+  GroupNorm's statistics over each slab alone; UNet3D's halos zeroed at
+  one level-2 conv, its InstanceNorm statistics over each slab alone)
   that the checks of (c) and (d) must catch.
 """
 
@@ -46,10 +53,11 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from cryovit_tpu_torch.models import CryoVIT
+from cryovit_tpu_torch.models import CryoVIT, UNet3D
 from cryovit_tpu_torch.models.cryovit import make_cryovit
 from cryovit_tpu_torch.models.losses import DiceLoss, dice_loss, focal_loss
 from cryovit_tpu_torch.models.metrics import DiceMetric, F1Metric, dice_metric, f1_metric
+from cryovit_tpu_torch.models.unet3d import make_unet3d
 from cryovit_tpu_torch.parallel import Mesh, make_mesh, place_batch, shard_batch
 from cryovit_tpu_torch.parallel import spatial
 from cryovit_tpu_torch.train.loop import Trainer
@@ -67,6 +75,18 @@ LOSS_TOL, METRIC_TOL, GRAD_TOL = 3e-4, 1e-3, 1e-4
 # of up to the learning rate, so the parameters themselves are not held
 # element by element
 PARAM_TOL = 1e-3
+
+# UNet3D's raw voxels: 32 slices (16 and 8 a rank at 2 and 4 ranks, so every
+# level's slab stays even through the three stride-2 pools), and 16 slices,
+# which divide 4 ranks but not 4 * 2^3
+UNET_SHAPE, UNET_REPLICATED_SHAPE = (1, 32, 16, 16, 1), (1, 16, 16, 16, 1)
+# UNet3D: each gradient's L2 difference against its norm, floored at
+# UNET_GRAD_FLOOR of the largest norm (a conv bias before a norm has a
+# gradient of rounding only, which the split sums move by up to 7e-8 of the
+# largest norm), within tests/test_torch_unet3d.py's 1e-3 of JAX and within
+# GRAD_TOL of the port's single process (f32 rounding: the sharded step
+# reads 6e-6 at most); the logs relatively, the predictions absolutely
+UNET_JAX_TOL, UNET_SINGLE_TOL, UNET_GRAD_FLOOR = 1e-3, GRAD_TOL, 1e-2
 
 
 def _update_error(got: dict, want: dict, start: dict) -> float:
@@ -87,12 +107,22 @@ def _family() -> CryoVIT:
     )
 
 
-def _trainer(sd: dict, mesh_shape=None) -> Trainer:
+def _unet_family() -> UNet3D:
+    return UNet3D(
+        name="UNet3D", input_key="data", lr=LR,
+        losses={"dice_loss": DiceLoss()},
+        metrics={"dice_metric": DiceMetric(0.5), "f1_metric": F1Metric(0.5)},
+    )
+
+
+def _trainer(sd: dict, mesh_shape=None, family: str = "cryovit") -> Trainer:
     """A trainer at the state ``fit`` would start from, with ``sd``'s weights."""
     trainer = Trainer(precision="f32", device="cpu", mesh_shape=mesh_shape,
                       enable_model_summary=False)
-    model = _family()
-    module = make_cryovit(sd, trainable=True)
+    if family == "unet3d":
+        model, module = _unet_family(), make_unet3d(sd, trainable=True)
+    else:
+        model, module = _family(), make_cryovit(sd, trainable=True)
     trainer.model, trainer.module, trainer.optimizer = model, module, model.make_optimizer(module)
     return trainer
 
@@ -195,6 +225,82 @@ def _job_depth_local_norms(inputs: dict) -> dict:
         cryovit._group_norm = group_norm
 
 
+def _unet_batch(inputs: dict, key: str = "unet") -> TomogramBatch:
+    data = inputs[f"{key}_data"]
+    return TomogramBatch(data.numpy(), inputs[f"{key}_label"].numpy(), np.array([data.shape[1]]))
+
+
+def _predict_and_step(trainer: Trainer, batch: TomogramBatch) -> dict:
+    """The predictions of the starting weights as ``predict`` places and
+    gathers them, then one train step (:func:`_steps`)."""
+    data, _, sharding = trainer.place(trainer.model, batch, None, labels=False)
+    preds = trainer._gather(trainer.predict_step(trainer.module, data, trainer.model, sharding),
+                            sharding)
+    return {**_steps(trainer, batch, 1), "preds": preds}
+
+
+def _job_unet(inputs: dict, key: str = "unet") -> dict:
+    return _predict_and_step(_trainer(inputs["unet_sd"], {"data": -1}, "unet3d"),
+                             _unet_batch(inputs, key))
+
+
+def _job_unet_replicated(inputs: dict) -> dict:
+    """16 slices on 4 ranks: the replicated step, and the warnings logged."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    spatial._warned_slab = False
+    spatial.logger.addHandler(handler)
+    try:
+        out = _job_unet(inputs, "unet_replicated")
+    finally:
+        spatial.logger.removeHandler(handler)
+    return {**out, "warnings": [r.getMessage() for r in records]}
+
+
+def _job_unet_halo_zero(inputs: dict) -> dict:
+    """Planted fault: the halos of one level-2 conv zero (analysis level 2's
+    second conv, the only one taking 64 channels at half width; UNet3D's
+    k3 convs exchange through CryoVIT's)."""
+    from cryovit_tpu_torch.models import cryovit
+
+    exchange, width = cryovit.halo_exchange, UNET_SHAPE[3] // 2
+
+    def zero_at_level2(x, mesh, dim, d):
+        if dim == 2 and x.shape[1] == 64 and x.shape[-1] == width:
+            return _zero_halos(x, mesh, dim, d)
+        return exchange(x, mesh, dim, d)
+
+    cryovit.halo_exchange = zero_at_level2
+    try:
+        return _job_unet(inputs)
+    finally:
+        cryovit.halo_exchange = exchange
+
+
+def _job_unet_local_norms(inputs: dict) -> dict:
+    """Planted fault: every InstanceNorm's statistics over the rank's own slab."""
+    from cryovit_tpu_torch.models import unet3d
+
+    inorm = unet3d._inorm
+    unet3d._inorm = lambda x, norm, channel_dim=1, mesh=None: inorm(x, norm, channel_dim)
+    try:
+        return _job_unet(inputs)
+    finally:
+        unet3d._inorm = inorm
+
+
+def _job_single_unet(inputs: dict) -> dict:
+    """The references of _job_unet in one process (no mesh)."""
+    return {key: _predict_and_step(_trainer(inputs["unet_sd"], None, "unet3d"),
+                                   _unet_batch(inputs, key))
+            for key in ("unet", "unet_replicated")}
+
+
+def _job_single_fit_unet(inputs: dict) -> dict:
+    return _fit(inputs["fit_dir"], inputs["unet_sd"], None, "unet3d")
+
+
 def _job_dino(inputs: dict) -> dict:
     from cryovit_tpu_torch.models.dinov2 import DinoV2Config, make_dinov2
     from cryovit_tpu_torch.run.dino_features import DinoExtractor
@@ -221,12 +327,16 @@ def _job_fit(inputs: dict) -> dict:
     return _fit(inputs["fit_dir"], inputs["fit_sd"], {"data": -1})
 
 
-def _fit(root: str, sd: dict, mesh_shape) -> dict:
+def _job_fit_unet(inputs: dict) -> dict:
+    return _fit(inputs["fit_dir"], inputs["unet_sd"], {"data": -1}, "unet3d")
+
+
+def _fit(root: str, sd: dict, mesh_shape, family: str = "cryovit") -> dict:
     """``Trainer.fit`` (SWA, a validation epoch each) on one training-ready
     file, then ``test`` and ``predict`` on it: its logs and final weights,
     what rank 0's logger saw, the test losses, metrics and predictions, the
-    predictions."""
-    from cryovit_tpu_torch.config import TrainConfig, TrainerConfig
+    predictions, and how each forward's batch lay (its split dim)."""
+    from cryovit_tpu_torch.config import MODELS, TrainConfig, TrainerConfig
     from cryovit_tpu_torch.run.train_model import build_file_datamodule
     from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
 
@@ -238,21 +348,31 @@ def _fit(root: str, sd: dict, mesh_shape) -> dict:
             self.history.append(dict(scalars))
 
     root = Path(root)
-    cfg = TrainConfig(label_key="mito", trainer=TrainerConfig(precision="f32", max_epochs=3))
+    epochs = 3 if family == "cryovit" else 1
+    cfg = TrainConfig(label_key="mito", model=MODELS[family],
+                      trainer=TrainerConfig(precision="f32", max_epochs=epochs))
     cfg = dataclasses.replace(cfg, dataloader=dataclasses.replace(cfg.dataloader, num_workers=0))
     dm = build_file_datamodule(cfg, [root / "train.hdf"], [root / "labels.hdf"], labels=["mito"])
     rec = Recorder()
-    trainer = Trainer(precision="f32", max_epochs=3, device="cpu", mesh_shape=mesh_shape,
+    trainer = Trainer(precision="f32", max_epochs=epochs, device="cpu", mesh_shape=mesh_shape,
                       callbacks=[StochasticWeightAveraging(swa_lrs=LR, swa_epoch_start=0.6)],
                       loggers=[rec], enable_model_summary=False)
-    model = _family()
+    model = _family() if family == "cryovit" else _unet_family()
+    dims = []
+    forward = Trainer._forward
+
+    def recorded(model, module, data, sharding):
+        dims.append(None if sharding is None else sharding.dim)
+        return forward(model, module, data, sharding)
+
+    trainer._forward = recorded
     module = trainer.fit(model, dm, variables=sd)
     tested = trainer.test(model, dm)
     predicted = trainer.predict(dm)
     return {"history": rec.history, "logged": trainer.logged,
             "params": {k: p.detach().clone() for k, p in module.named_parameters()},
             "test": [(r.losses, r.metrics, r.preds) for r in tested],
-            "predict": [r.preds for r in predicted]}
+            "predict": [r.preds for r in predicted], "dims": dims}
 
 
 JOBS = {
@@ -262,9 +382,16 @@ JOBS = {
     "depth": _job_depth,
     "depth_halo_zero": _job_depth_halo_zero,
     "depth_local_norms": _job_depth_local_norms,
+    "unet": _job_unet,
+    "unet_replicated": _job_unet_replicated,
+    "unet_halo_zero": _job_unet_halo_zero,
+    "unet_local_norms": _job_unet_local_norms,
     "dino": _job_dino,
     "sam": _job_sam,
     "fit": _job_fit,
+    "fit_unet": _job_fit_unet,
+    "single_unet": _job_single_unet,
+    "single_fit_unet": _job_single_fit_unet,
 }
 
 
@@ -277,6 +404,31 @@ def _rank_main(rank: int, world: int, tmp: str, inputs_path: str, jobs: list[str
         torch.save({job: JOBS[job](inputs) for job in jobs}, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+# JAX's UNet3D references (_jax_unet_step), one process each: their compiles
+# take most of the fixture's time, and they run beside the parent's work.
+# The replicated depth also on a mesh of one: JAX's GSPMD gradients at 4
+# devices are wrong there (ROADMAP Queue C, C7)
+JAX_UNET_CASES = (("unet", 2), ("unet", 4), ("unet_replicated", 4), ("unet_replicated", 1))
+
+
+def _jax_unet_main(index: int, tmp: str, inputs_path: str, cache_dir: str | None) -> None:
+    """JAX_UNET_CASES[index] on the 8 virtual CPU devices (the parent's
+    environment gives the device count), with the parent's compilation
+    cache, to ``tmp/rank<index>.pt``."""
+    import jax
+    import jax.numpy as jnp
+
+    from cryovit_tpu.train.torch_import import convert_unet3d_state_dict
+
+    jax.config.update("jax_platforms", "cpu")
+    if cache_dir:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    inputs = torch.load(inputs_path, weights_only=False)
+    variables = jax.tree_util.tree_map(jnp.asarray, convert_unet3d_state_dict(
+        {k: v.numpy() for k, v in inputs["unet_sd"].items()}))
+    torch.save(_jax_unet_step(inputs, variables, *JAX_UNET_CASES[index]), f"{tmp}/rank{index}.pt")
 
 
 def _start(tmp: Path, world: int, inputs_path: Path, jobs: list[str]):
@@ -328,12 +480,15 @@ def _training_file(root: Path, rng) -> None:
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The inputs (numpy seeds; the decoder's weights the port's seeded init
-    taken into JAX and back through ``cryovit_from_jax``, the tiny DINOv2's
-    JAX's init), every rank's results of the 4-rank run (losses,
-    data-parallel, depth-sharded, the three faults) and of the 2-rank run
-    (depth-sharded, the extractors, fit), and the references, computed in
-    the parent while the ranks run: JAX's mesh steps and extractor, the
-    port's single process."""
+    taken into JAX and back through ``cryovit_from_jax``, UNet3D's the port's
+    seeded init with its 1-D parameters moved off their initial values, the
+    tiny DINOv2's JAX's init), every rank's results of the 4-rank run
+    (losses, data-parallel, depth-sharded CryoVIT and UNet3D, UNet3D's
+    replicated step, the five faults) and of the 2-rank run (depth-sharded
+    CryoVIT and UNet3D, the extractors, fit of both), and the references,
+    computed while the ranks run: JAX's mesh steps and extractor and the
+    port's single process in the parent, JAX's UNet3D steps and the port's
+    single UNet3D process in processes of their own."""
     import jax
     import jax.numpy as jnp
 
@@ -342,12 +497,16 @@ def runs(tmp_path_factory):
     from cryovit_tpu.train.torch_import import convert_cryovit_state_dict
     from cryovit_tpu_torch.convert import cryovit_from_jax, dinov2_from_jax
     from cryovit_tpu_torch.models.cryovit import random_cryovit_state_dict
+    from cryovit_tpu_torch.models.unet3d import random_unet3d_state_dict
 
     rng = np.random.default_rng(18)
     tmp = tmp_path_factory.mktemp("parallel")
     seeded = random_cryovit_state_dict(torch.Generator().manual_seed(18))
     cryo_vars = jax.tree_util.tree_map(
         jnp.asarray, convert_cryovit_state_dict({k: v.numpy() for k, v in seeded.items()}))
+    unet_sd = {k: v + 0.1 * torch.from_numpy(rng.standard_normal(v.shape).astype(np.float32))
+               if v.dim() == 1 else v
+               for k, v in random_unet3d_state_dict(torch.Generator().manual_seed(19)).items()}
     dino_cfg = JaxDinoV2Config.tiny_test()
     dino_vars = jax_make_dinov2(dino_cfg, use_flash_attention=False).init(
         jax.random.key(2), jnp.zeros((1, 28, 28)))
@@ -367,12 +526,24 @@ def runs(tmp_path_factory):
         "sam_stack": torch.from_numpy(rng.random((5, 40, 40)).astype(np.float32)),
         "fit_dir": str(tmp / "fit"),
         "fit_sd": sd,
+        "unet_sd": unet_sd,
     }
+    for key, shape in (("unet", UNET_SHAPE), ("unet_replicated", UNET_REPLICATED_SHAPE)):
+        inputs[f"{key}_data"] = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        inputs[f"{key}_label"] = torch.from_numpy(
+            rng.integers(-1, 2, size=shape[:4]).astype(np.float32))
     torch.save(inputs, tmp / "inputs.pt")
     four = _start(tmp / "w4", 4, tmp / "inputs.pt",
                   ["losses", "dp", "dp_averaged", "depth", "depth_halo_zero",
-                   "depth_local_norms"])
-    two = _start(tmp / "w2", 2, tmp / "inputs.pt", ["depth", "dino", "sam", "fit"])
+                   "depth_local_norms", "unet", "unet_replicated", "unet_halo_zero",
+                   "unet_local_norms"])
+    two = _start(tmp / "w2", 2, tmp / "inputs.pt",
+                 ["depth", "unet", "dino", "sam", "fit", "fit_unet"])
+    one = _start(tmp / "w1", 1, tmp / "inputs.pt", ["single_unet", "single_fit_unet"])
+    (tmp / "jax").mkdir()
+    jax_unet = mp.start_processes(
+        _jax_unet_main, nprocs=len(JAX_UNET_CASES), join=False, start_method="spawn",
+        args=(str(tmp / "jax"), str(tmp / "inputs.pt"), jax.config.jax_compilation_cache_dir))
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
@@ -388,6 +559,10 @@ def runs(tmp_path_factory):
         torch.set_num_threads(threads)
         out["four"] = _join(four, tmp / "w4", 4)
         out["two"] = _join(two, tmp / "w2", 2)
+        (single,) = _join(one, tmp / "w1", 1)
+        out.update(single)  # single_unet, single_fit_unet
+        jax_runs = _join(jax_unet, tmp / "jax", len(JAX_UNET_CASES))
+        out["jax_unet"] = dict(zip(JAX_UNET_CASES, jax_runs))
     return out
 
 
@@ -652,6 +827,72 @@ def _jax_depth_loss(inputs: dict, variables, n: int) -> float:
     return float(loss(replicate(variables, mesh), batch.data, batch.label))
 
 
+def _jax_unet_step(inputs: dict, variables, key: str, n: int) -> dict:
+    """JAX's GSPMD step of UNet3DModule (f32, Dice loss, the family's two
+    metrics) with the batch placed depth-sharded over ``n`` devices by JAX's
+    ``place_batch``: the loss and metrics under the port's log names, the
+    gradients under the port's parameter names, the predictions."""
+    import jax
+    import jax.numpy as jnp
+
+    from cryovit_tpu.models.losses import dice_loss as jax_dice_loss
+    from cryovit_tpu.models.metrics import DiceMetric as JaxDiceMetric
+    from cryovit_tpu.models.metrics import F1Metric as JaxF1Metric
+    from cryovit_tpu.models.unet3d import UNet3DModule
+    from cryovit_tpu.parallel import make_mesh as jax_make_mesh
+    from cryovit_tpu.parallel import place_batch as jax_place_batch
+    from cryovit_tpu.parallel import replicate
+    from cryovit_tpu.types import TomogramBatch as JaxTomogramBatch
+    from cryovit_tpu_torch.convert import unet3d_from_jax
+
+    data = inputs[f"{key}_data"].numpy()
+    mesh = jax_make_mesh({"data": n})
+    batch = jax_place_batch(JaxTomogramBatch(
+        data=jnp.asarray(data), label=jnp.asarray(inputs[f"{key}_label"].numpy()),
+        num_slices=jnp.asarray([data.shape[1]])), mesh)
+    assert batch.data.addressable_shards[0].data.shape[1] == data.shape[1] // n
+    module = UNet3DModule(dtype=jnp.float32)
+    metrics = {"dice_metric": JaxDiceMetric(0.5), "f1_metric": JaxF1Metric(0.5)}
+
+    @jax.jit
+    def step(v, x, y):
+        def loss(v):
+            p = module.apply(v, x)
+            return jax_dice_loss(p, y, y > -1), p
+
+        (value, p), grads = jax.value_and_grad(loss, has_aux=True)(v)
+        return value, p, grads, {k: m(p, y, y > -1) for k, m in metrics.items()}
+
+    value, preds, grads, logged = step(replicate(variables, mesh), batch.data, batch.label)
+    return {"logs": {"train_dice_loss": float(value),
+                     **{f"train_{k}": float(v) for k, v in logged.items()}},
+            "grads": {k: torch.from_numpy(np.array(v)) for k, v in unet3d_from_jax(grads).items()},
+            "preds": torch.from_numpy(np.array(preds))}
+
+
+def _unet_disagreements(got: dict, want: dict, tol: float) -> list[str]:
+    """What of a UNet3D step falls outside ``tol`` of a reference's (JAX's
+    step, or the port's single process with its ``logs`` list): each of the
+    reference's logs (relative, at least absolute ``tol``), every gradient
+    (the L2 of the difference against its norm, floored at UNET_GRAD_FLOOR
+    of the largest norm), the predictions (absolute)."""
+    def first(logs):
+        return logs[0] if isinstance(logs, list) else logs
+
+    logs, got_logs = first(want["logs"]), first(got["logs"])
+    bad = [f"{k}: {got_logs[k]} vs {v}" for k, v in logs.items()
+           if not abs(got_logs[k] - v) <= tol * max(abs(v), 1.0)]
+    largest = max(w.norm().item() for w in want["grads"].values())
+    for name, w in want["grads"].items():
+        scale = max(w.norm().item(), UNET_GRAD_FLOOR * largest)
+        if not (got["grads"][name] - w).norm().item() <= tol * scale:
+            bad.append(f"gradient {name}")
+    error = (got["preds"] - want["preds"]).abs().max().item()
+    if not error <= tol:
+        bad.append(f"predictions: max|diff| {error}")
+    return bad
+
+
 def _depth_disagreements(got: dict, want: dict) -> list[str]:
     """What of a depth-sharded step falls outside f32 rounding of the
     single-process step: the logs, every gradient (1e-5 of its largest)."""
@@ -663,19 +904,57 @@ def _depth_disagreements(got: dict, want: dict) -> list[str]:
     return bad
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_depth_sharded_step_matches_gspmd_and_the_single_process(runs, world):
-    """Batch 1, features (1, 16, 4, 4, 1536), labels (1, 16, 64, 64): each
-    rank holds 16/world slices (4 at 4 ranks, so the halos of dilations 16
-    and 32 span every other rank). The loss within rtol 1e-5 of JAX's GSPMD
-    program on a ``world``-device mesh; the logs and every gradient within
-    f32 rounding (1e-5 of the largest) of the port's single-process step;
-    the parameters after the step equal on every rank."""
-    ranks = [r["depth"] for r in runs["four" if world == 4 else "two"]]
-    assert {r["dim"] for r in ranks} == {1}
-    np.testing.assert_allclose(ranks[0]["logs"][0]["train_dice_loss"],
-                               runs["jax_depth"][world], rtol=1e-5)
-    assert _depth_disagreements(ranks[0], runs["single_depth"]) == []
+@pytest.mark.parametrize("model,world", [
+    pytest.param("cryovit", 2, id="2"),
+    pytest.param("cryovit", 4, id="4"),
+    pytest.param("unet", 2, id="unet3d-2"),
+    pytest.param("unet", 4, id="unet3d-4"),
+    pytest.param("unet_replicated", 4, id="unet3d-replicated-4"),
+])
+def test_depth_sharded_step_matches_gspmd_and_the_single_process(runs, model, world):
+    """CryoVIT: batch 1, features (1, 16, 4, 4, 1536), labels (1, 16, 64,
+    64): each rank holds 16/world slices (4 at 4 ranks, so the halos of
+    dilations 16 and 32 span every other rank). The loss within rtol 1e-5 of
+    JAX's GSPMD program on a ``world``-device mesh; the logs and every
+    gradient within f32 rounding (1e-5 of the largest) of the port's
+    single-process step.
+
+    UNet3D: batch 1, voxels (1, 32, 16, 16): each rank holds 32/world slices
+    (8 at 4 ranks: 4, 2 and 1 at the pooled levels, so the bottom's halos
+    are whole slabs). The loss, both metrics, every gradient and the
+    gathered predictions within UNET_JAX_TOL of JAX's GSPMD step on a
+    ``world``-device mesh and within UNET_SINGLE_TOL of the port's single
+    process. At 16 slices on 4 ranks (4 a rank, which the three stride-2
+    pools would split) the step is the replicated one, with its warning
+    naming the pools: its loss, metrics and predictions those of JAX's
+    GSPMD step (which shards the depth), its gradients those of JAX's step
+    on a mesh of one, and JAX's GSPMD gradients off them (C7).
+
+    Either way the parameters after the step equal on every rank."""
+    ranks = [r["depth" if model == "cryovit" else model] for r in
+             runs["four" if world == 4 else "two"]]
+    if model == "cryovit":
+        assert {r["dim"] for r in ranks} == {1}
+        np.testing.assert_allclose(ranks[0]["logs"][0]["train_dice_loss"],
+                                   runs["jax_depth"][world], rtol=1e-5)
+        assert _depth_disagreements(ranks[0], runs["single_depth"]) == []
+    else:
+        replicated = model == "unet_replicated"
+        assert {r["dim"] for r in ranks} == {None if replicated else 1}
+        if replicated:
+            for r in ranks:
+                assert len(r["warnings"]) == 1 and "stride-2 depth pools" in r["warnings"][0]
+        gspmd = runs["jax_unet"][model, world]
+        for r in ranks:
+            assert _unet_disagreements(r, runs["single_unet"][model], UNET_SINGLE_TOL) == []
+            bad = _unet_disagreements(r, gspmd, UNET_JAX_TOL)
+            if not replicated:
+                assert bad == []
+                continue
+            assert bad and all(b.startswith("gradient") for b in bad), bad
+            assert _unet_disagreements(r, runs["jax_unet"][model, 1], UNET_JAX_TOL) == []
+        if replicated:  # C7: JAX's GSPMD gradients against its own on a mesh of one
+            assert _unet_disagreements(gspmd, runs["jax_unet"][model, 1], UNET_JAX_TOL)
     for r in ranks[1:]:
         assert r["logs"] == ranks[0]["logs"]
         for name, p in ranks[0]["params"].items():
@@ -694,6 +973,20 @@ def test_local_group_norm_statistics_are_caught(runs):
     ranks instead of the whole depth: the gradient check fails."""
     bad = _depth_disagreements(runs["four"][0]["depth_local_norms"], runs["single_depth"])
     assert any(b.startswith("gradient") for b in bad), bad
+
+
+@pytest.mark.parametrize("fault", ["unet_halo_zero", "unet_local_norms"])
+def test_unet3d_planted_faults_are_caught(runs, fault):
+    """Planted faults at 4 ranks: the halos of one level-2 conv zero, and
+    every InstanceNorm's statistics over each rank's own slab instead of the
+    whole depth. Each fails the gradient check against the single process,
+    and against JAX's GSPMD step."""
+    got = runs["four"][0][fault]
+    assert got["dim"] == 1
+    for want, tol in ((runs["single_unet"]["unet"], UNET_SINGLE_TOL),
+                      (runs["jax_unet"]["unet", 4], UNET_JAX_TOL)):
+        bad = _unet_disagreements(got, want, tol)
+        assert any(b.startswith("gradient") for b in bad), bad
 
 
 def test_halo_exchange_gives_each_slab_its_neighbours():
@@ -757,6 +1050,27 @@ def test_place_batch_branches_and_warning(caplog, monkeypatch):
     assert sharding.dim is None
 
 
+def test_place_batch_needs_slabs_of_the_models_multiple(caplog, monkeypatch):
+    """A model whose slabs must be a multiple of ``multiple`` slices (UNet3D:
+    8) gets the depth axis only when the depth divides ``n · multiple``;
+    a depth that divides the mesh but not that is replicated, with one
+    warning naming the pools, however often it comes."""
+    monkeypatch.setattr(spatial, "_warned_slab", False)
+    mesh = Mesh({"data": 4}, rank=1)
+    one = TomogramBatch(np.arange(32 * 3).reshape(1, 32, 3), np.zeros((1, 32, 2)),
+                        np.array([32]))
+    placed, sharding = place_batch(one, mesh, multiple=8)
+    assert sharding.dim == 1 and np.array_equal(placed.data, one.data[:, 8:16])
+    half = TomogramBatch(one.data[:, :16], one.label[:, :16], np.array([16]))
+    with caplog.at_level(logging.WARNING, logger=spatial.__name__):
+        for _ in range(2):
+            placed, sharding = place_batch(half, mesh, multiple=8)
+            assert sharding.dim is None and placed is half
+        assert place_batch(half, mesh, multiple=4)[1].dim == 1
+    warned = [r.message for r in caplog.records if "replicating" in r.message]
+    assert len(warned) == 1 and "a slab of 4 slices is not a multiple of the 8" in warned[0]
+
+
 # ---- (f) the extractors -------------------------------------------------------
 
 
@@ -796,6 +1110,42 @@ def test_sharded_sam_extractor_matches_the_single_process(runs):
 
 
 # ---- fit on a mesh ------------------------------------------------------------
+
+
+def test_unet3d_fit_test_and_predict_take_the_depth_sharded_step(runs):
+    """UNet3D's ``Trainer.fit`` (1 epoch, SWA, validation), ``test`` and
+    ``predict`` on the 8-slice file (raw voxels padded to 32x64x64: 16
+    slices a rank) over 2 ranks: every forward of each (train, validation,
+    test, predict) takes the depth-sharded step; the logged epoch within
+    f32 rounding of the single process (the thresholded metrics within
+    METRIC_TOL: after an update a voxel near 0.5 may flip); the weights
+    equal on both ranks; the test losses and metrics and every rank's
+    gathered predictions, all of the trained weights, the single process's.
+    (The updates are not held to PARAM_TOL as CryoVIT's are: AdamW's first
+    step moves an element by about ±lr whatever its gradient's size, and
+    UNet3D's conv biases before a norm, and a few elements of its weights,
+    have gradients of rounding only, so their updates flip at random.)"""
+    want = runs["single_fit_unet"]
+    main, other = (r["fit_unet"] for r in runs["two"])
+    assert set(want["dims"]) == {None}
+    assert len(main["dims"]) == len(want["dims"]) == 4 and set(main["dims"]) == {1}
+    assert other["history"] == [] and len(main["history"]) == len(want["history"])
+    for g, w in zip(main["history"], want["history"]):
+        for key, value in w.items():
+            if "time" not in key:
+                rtol = METRIC_TOL if "metric" in key else 1e-5
+                np.testing.assert_allclose(g[key], value, rtol=rtol, atol=1e-6, err_msg=key)
+    for name, p in main["params"].items():
+        assert torch.equal(other["params"][name], p), name
+    for rank in (main, other):
+        ((losses, metrics, preds),), ((w_losses, w_metrics, w_preds),) = rank["test"], want["test"]
+        for key, value in {**w_losses, **w_metrics}.items():
+            rtol = METRIC_TOL if "metric" in key else 1e-4
+            np.testing.assert_allclose({**losses, **metrics}[key], value, rtol=rtol, atol=1e-5,
+                                       err_msg=key)
+        assert preds[0].shape == w_preds[0].shape == (8, 32, 32)
+        np.testing.assert_allclose(preds[0], w_preds[0], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(rank["predict"][0][0], want["predict"][0][0], rtol=0, atol=1e-4)
 
 
 def test_fit_on_a_depth_sharded_mesh_matches_the_single_process(runs):
