@@ -201,10 +201,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    groups) and the gathered probabilities of the starting weights against
    the single process, within limits set the same way, which two planted
    faults (the halos of one level-2 conv zero, InstanceNorm statistics
-   over each slab alone) must read above.
+   over each slab alone) must read above. Then SAM2's two steps at full
+   width (SAM2Config.large(), live encoder, ``train --model sam2``'s norm
+   clip) on the same blob voxels: at batch 1 the frozen encoder split over
+   the ranks (64 slices a rank, the pyramids gathered), the heads whole on
+   each rank; at batch 2 the data-parallel step (one crop a rank): the
+   total loss and each trained gradient group before the clip (direction
+   and size) against the single process, within limits set the same way,
+   which three planted faults (rank 0 encoding rank 1's slab, the split
+   step's gradients summed, the data-parallel gradients averaged) must read
+   above; the bytes and host seconds of the pyramids' gather.
    Launches per rank (exactly 12/6/2/2 of rows 4-7 a CryoVIT step, 5/3 of
-   rows 4/5 a UNet3D step, 40 of row 1 an extraction), ms per step, peak
-   GiB per rank against the single process.
+   rows 4/5 a UNet3D step, 32/32/3 of rows 9-11 a SAM2 encoder-split step
+   and 64/64/6 a data-parallel one, 40 of row 1 an extraction), ms per
+   step, peak GiB per rank against the single process.
 
 Launch counters are zeroed just before each main path and read just after;
 every kernel of a path must have run (the SAM path: exactly the counts the
@@ -303,7 +313,7 @@ DECODER_FORWARD_LAUNCHES = {**dict.fromkeys(KERNELS, 0), "conv3d_dm": 6, "convt2
 # one SAM2 train step on the 128-slice crop: the frozen Hiera-L runs live in
 # two 64-slice chunks, each launching rows 9, 10, 11 as a serving batch does
 # (SAM_BATCH_LAUNCHES below); the heads have no kernel
-SAM2_EPOCHS = 3
+SAM2_EPOCHS = 2
 # the kv_cache check: the tracking pass with the live encoder on this many
 # slices of the SAM2 phase's tomogram, cached and uncached
 KV_SLICES = 64
@@ -3166,6 +3176,15 @@ def _sam2_family(dtype, **custom):
 SAM2_REF_SIDE, SAM2_REF_DEPTH = 256, 32
 
 
+def _sam2_group(name: str) -> str:
+    """The group of a trained SAM2 leaf whose gradient is held as one vector."""
+    if name.endswith((".w_a.weight", ".w_b.weight")):
+        return "LoRA factors"
+    if name == "model.no_mem_embed":
+        return "no-memory embedding"
+    return "prompt predictor" if name.startswith("prompt_predictor.") else "SAM2 embeddings"
+
+
 def _group_agreement(got: dict, want: dict, names: list[str]) -> tuple[float, float]:
     """(1 − cosine, |ln(norm ratio)|) of the gradient of ``names`` taken as
     one vector: its direction and its size against the reference's. A zero
@@ -3249,13 +3268,7 @@ def sam2_reference_phase(dev: torch.device) -> None:
                       if p.grad is not None})
     p_ref, loss_ref, g_ref = out["CPU f32"]
 
-    def group(n):
-        if n.endswith((".w_a.weight", ".w_b.weight")):
-            return "LoRA factors"
-        if n == "model.no_mem_embed":
-            return "no-memory embedding"
-        return "prompt predictor" if n.startswith("prompt_predictor.") else "SAM2 embeddings"
-
+    group = _sam2_group
     groups = sorted({group(n) for n in g_ref})
     largest = {g: max(g_ref[n].abs().max().item() for n in g_ref if group(n) == g) for g in groups}
 
@@ -3637,6 +3650,9 @@ PARALLEL_FAULTS = {
     "swapped slots": "each rank's features gathered into the other rank's slot",
     "level-2 zero halos": "the halos of UNet3D's second level-2 analysis conv zero",
     "local instance norms": "UNet3D's InstanceNorm statistics over each rank's own slab",
+    "wrong slab": "rank 0's encoder fed rank 1's slab of the slices",
+    "summed": "the encoder-split step's gradients summed over the ranks (each rank's are "
+              "already the whole batch's)",
 }
 # `chip_smoke.py --parallel-limits`: the seeds whose sound and faulty
 # readings the limits above are set between
@@ -3658,6 +3674,33 @@ UNET_LEVELS = {"level 1": ("analysis_layers.0.", "synthesis_layers.2.", "output_
 # 4.57e-4 vs local norms 3.10e-3, its |ln norm ratio| 5.25e-4 vs 4.02e-3
 UNET_PARALLEL_LOSS, UNET_PARALLEL_PROBS, UNET_PARALLEL_COS, UNET_PARALLEL_SIZE = (
     1.7e-6, 0.15, 1.2e-3, 1.45e-3)
+# SAM2 under the mesh (SAM2Config.large() at full width, live encoder, the
+# training cell's 128x512x512 blob crop): at batch 1 the frozen encoder split
+# over the ranks (TRAIN_DEPTH / PARALLEL_WORLD slices a rank, the pyramids
+# gathered), the rest whole on every rank; at batch PARALLEL_WORLD the
+# data-parallel step (one crop a rank). Held against the single process on
+# the card: |Δ total loss| (Dice + mask_loss) and each gradient group of
+# sam2_reference_phase (_sam2_group) before the norm clip (1 − cosine,
+# |ln norm ratio|), each limit the geometric mean of the largest sound and the
+# smallest fault reading that lies >= 4x above it, or 4x the largest sound
+# reading where no fault moves it, over PARALLEL_LIMIT_SEEDS
+# (`--parallel-limits "sam2 encoder-split" "sam2 data-parallel"`, run twice;
+# NVIDIA H100 80GB HBM3, 700.00 W; worst group): encoder split |Δ loss|
+# 1.32e-4 vs wrong slab 1.03e-3, 1 − cos 1.72e-3 vs 0.239, |ln ratio| 0.0367
+# vs wrong slab 0.517 (summed 0.692); data-parallel |Δ loss| 1.39e-4 and
+# 1 − cos 0.0110 (averaged moves neither), |ln ratio| 0.0723 vs averaged
+# 0.691. The split step itself is exact: its sound |Δ loss| is cuDNN's
+# attention (PyTorch's SDPA pick on the H100 for the heads), which gives one
+# of two results per process, so a rank may land apart from the single
+# process (PERF.md PR 20)
+SAM2_SPLIT, SAM2_DP = "sam2 encoder-split", "sam2 data-parallel"
+SAM2_PARALLEL_LIMITS = {  # (loss, 1 − cos, |ln norm ratio|)
+    SAM2_SPLIT: (3.7e-4, 0.020, 0.14),
+    SAM2_DP: (5.6e-4, 0.044, 0.22),
+}
+# rows 9-11 a rank: one 64-slice chunk of the encoder-split step, one
+# tomogram's two chunks of the data-parallel one (the single process's step)
+SAM2_SPLIT_LAUNCHES = {**dict.fromkeys(KERNELS, 0), **SAM_BATCH_LAUNCHES}
 
 
 def _parallel_crops(dev: torch.device, seed: int = PARALLEL_SEED):
@@ -3692,11 +3735,12 @@ def _parallel_stack():
 def _planted(fault: str | None):
     """One of PARALLEL_FAULTS planted into the port for the block's extent."""
     from cryovit_tpu_torch.models import cryovit, unet3d
-    from cryovit_tpu_torch.parallel.mesh import Mesh
+    from cryovit_tpu_torch.models.sam2.model import SAM2Model
+    from cryovit_tpu_torch.parallel.mesh import Mesh, Sharding
     from cryovit_tpu_torch.train.loop import Trainer
 
     saved = (Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm,
-             unet3d._inorm)
+             unet3d._inorm, SAM2Model.encode_images)
     if fault == "averaged":
         def averaged(self, sharding):
             saved[0](self, sharding)
@@ -3732,11 +3776,22 @@ def _planted(fault: str | None):
         def local_inorm(x, norm, channel_dim=1, mesh=None):
             return saved[4](x, norm, channel_dim)
         unet3d._inorm = local_inorm
+    elif fault == "wrong slab":
+        def wrong_slab(self, slices, mesh=None):
+            if mesh is not None and mesh.rank == 0:
+                k = slices.shape[0] // mesh.size
+                slices = torch.cat([slices[k : 2 * k], slices[k:]])
+            return saved[5](self, slices, mesh)
+        SAM2Model.encode_images = wrong_slab
+    elif fault == "summed":
+        def summed(self, sharding):
+            saved[0](self, Sharding(sharding.mesh, 0) if sharding.encoder else sharding)
+        Trainer._reduce_gradients = summed
     try:
         yield
     finally:
         (Trainer._reduce_gradients, cryovit.halo_exchange, Mesh.gather, cryovit._group_norm,
-         unet3d._inorm) = saved
+         unet3d._inorm, SAM2Model.encode_images) = saved
 
 
 def _parallel_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SEED) -> dict:
@@ -3792,19 +3847,6 @@ def _parallel_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SE
     return out
 
 
-def _parallel_unet_batch(seed: int = PARALLEL_SEED):
-    """One crop of the UNet3D training cell as the loader gives it: a
-    TRAIN_DEPTH x SIDE² blob tomogram's raw voxels (uint8 / 255, f32) and
-    its labels (the first 16 slices unlabeled), drawn from ``seed``."""
-    import numpy as np
-
-    from cryovit_tpu_torch.types import TomogramBatch
-
-    tomo, label = blob_tomogram(np.random.default_rng(seed), TRAIN_DEPTH, SIDE)
-    return TomogramBatch((tomo.astype(np.float32) / 255.0)[None, ..., None], label[None],
-                         np.array([TRAIN_DEPTH]))
-
-
 def _parallel_unet_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SEED) -> dict:
     """One UNet3D train step at full width (bf16 on f32 masters, the weights
     drawn from ``seed``) on ``batch`` as ``Trainer.place`` lays it out over
@@ -3856,6 +3898,125 @@ def _parallel_unet_step(dev, batch, mesh_shape, fault=None, timed=0, seed=PARALL
             times.append(start.elapsed_time(stop))
         out["ms"] = times
     return out
+
+
+def _parallel_blob_batch(seed: int = PARALLEL_SEED, crops: int = 1):
+    """``crops`` crops of the UNet3D / SAM2 training cell as the loader
+    gives them: a TRAIN_DEPTH x SIDE² blob tomogram's raw voxels (uint8 /
+    255, f32) and its labels (the first 16 slices unlabeled) each, the first
+    drawn from ``seed``, the next from ``seed + 1000``."""
+    import numpy as np
+
+    from cryovit_tpu_torch.types import TomogramBatch
+
+    tomos = [blob_tomogram(np.random.default_rng(seed + 1000 * i), TRAIN_DEPTH, SIDE)
+             for i in range(crops)]
+    return TomogramBatch(np.stack([t.astype(np.float32) / 255.0 for t, _ in tomos])[..., None],
+                         np.stack([lab for _, lab in tomos]), np.full((crops,), TRAIN_DEPTH))
+
+
+def _parallel_sam2_step(dev, batch, mesh_shape, fault=None, seed=PARALLEL_SEED) -> dict:
+    """One SAM2 train step at full width (``SAM2Config.large()``, live
+    encoder, bf16 on f32 masters, ``train --model sam2``'s recipe with its
+    norm clip at 1; the weights drawn from ``seed`` on the card, the
+    object-score bias at +3) on ``batch`` as ``Trainer.place`` lays it out
+    over the mesh of ``mesh_shape`` (None: the single process): its logs,
+    the trained gradients before the clip (the clipped ones times the pre-
+    over the post-clip norm: the norm clip scales every gradient alike),
+    launches, peak memory (above what the process held before), the bytes
+    of the pyramids' gathers and their host seconds (synced), and the
+    step's device ms (CUDA events; the encoder's compute copy made before
+    it; the allocator is cold in a process's first SAM2 step after
+    ``empty_cache``, warm in the next, a planted fault's on a fresh
+    module)."""
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.config import TrainConfig
+    from cryovit_tpu_torch.models.sam2.model import random_sam2_state_dict
+    from cryovit_tpu_torch.parallel.mesh import Mesh
+    from cryovit_tpu_torch.run.train_model import build_model
+    from cryovit_tpu_torch.train.loop import Trainer
+
+    held = torch.cuda.memory_allocated()
+    cfg = TrainConfig.for_model("sam2", "mito")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, custom_kwargs=tuple(
+        (k, False if k == "use_cache_features" else v) for k, v in cfg.model.custom_kwargs)))
+    model = build_model(cfg)
+    trainer = Trainer(precision="bf16", device=dev, mesh_shape=mesh_shape,
+                      gradient_clip_val=cfg.trainer.gradient_clip_val,
+                      gradient_clip_algorithm=cfg.trainer.gradient_clip_algorithm,
+                      enable_model_summary=False)
+    sd = random_sam2_state_dict(model.sam_cfg, torch.Generator(device=trainer.device).manual_seed(seed))
+    sd["model.sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(3.0)
+    module = model.build_module(sd, trainer.device)
+    del sd
+    trainer.model, trainer.module, trainer.optimizer = model, module, model.make_optimizer(module)
+    model.train_mode = True
+    module.compute_encoder()
+    gathered = []
+    gather = Mesh.gather
+
+    def counted(self, local, dim=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(self, local, dim)
+        torch.cuda.synchronize()
+        gathered.append((out.nbytes, time.perf_counter() - t0))
+        return out
+
+    with _planted(fault):
+        Mesh.gather = counted
+        try:
+            data, label, sharding = trainer.place(model, batch, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logs = trainer.train_step(data, label, sharding)
+            stop.record()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            logs = {k: float(v) for k, v in logs.items()}
+            scale = logs["grad_norm_preclip"] / logs["grad_norm"]
+            trained = {n: p for n, p in module.named_parameters() if p.requires_grad}
+            out = {
+                "logs": logs, "grads": {n: (p.grad.float() * scale).cpu() for n, p in trained.items()},
+                "launches": counts, "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+                "gather_gb": sum(b for b, _ in gathered) / 1e9,
+                "gather_s": sum(t for _, t in gathered), "ms": [start.elapsed_time(stop)],
+                "slab": tuple(data.shape), "dim": None if sharding is None else sharding.dim,
+                "encoder": sharding is not None and sharding.encoder,
+            }
+            if trainer.mesh is not None:  # rank 0's trained parameters, bit for bit (the
+                # frozen ones never change)
+                out["identical"] = all(
+                    torch.equal(p, trainer.mesh.broadcast_(p.detach().clone()))
+                    for p in trained.values())
+        finally:
+            Mesh.gather = gather
+    return out
+
+
+def _sam2_agreement(got: dict, want: dict) -> dict:
+    """A SAM2 step against the single process's: |Δ total loss| (Dice +
+    mask_loss) and the two losses, each gradient group before the clip
+    (_sam2_group, _group_agreement: 1 − cosine, |ln norm ratio|) with the
+    worst of each, |Δ| of the pre-clip gradient norm over its size."""
+    names = sorted({_sam2_group(n) for n in want["grads"]})
+    groups = {g: _group_agreement(got["grads"], want["grads"],
+                                  [n for n in want["grads"] if _sam2_group(n) == g]) for g in names}
+    cos_at = max(groups, key=lambda k: groups[k][0])
+    size_at = max(groups, key=lambda k: groups[k][1])
+    g, w = got["logs"]["grad_norm_preclip"], want["logs"]["grad_norm_preclip"]
+    return {"loss": abs(got["logs"]["train_total"] - want["logs"]["train_total"]),
+            "losses": (got["logs"]["train_total"], want["logs"]["train_total"]),
+            "cos": groups[cos_at][0], "cos_at": cos_at, "size": groups[size_at][1],
+            "size_at": size_at, "grad_norm": abs(g - w) / w, "groups": groups}
+
+
+def _sam2_within(what: str, agreement: dict) -> bool:
+    loss, cos, size = SAM2_PARALLEL_LIMITS[what]
+    return agreement["loss"] <= loss and agreement["cos"] <= cos and agreement["size"] <= size
 
 
 def _unet_agreement(got: dict, want: dict) -> dict:
@@ -3952,16 +4113,22 @@ def _feature_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
 # the train steps of the parallel phase and the faults planted into each
 PARALLEL_STEPS = (("data-parallel", ("averaged",)),
                   ("depth-sharded", ("averaged", "zero halos", "local norms")),
-                  (UNET_PARALLEL, ("level-2 zero halos", "local instance norms")))
+                  (UNET_PARALLEL, ("level-2 zero halos", "local instance norms")),
+                  (SAM2_SPLIT, ("wrong slab", "summed")),
+                  (SAM2_DP, ("averaged",)))
 # what of a step's run the single process's reference keeps
 REFERENCE_KEYS = {"data-parallel": ("logs", "grads", "updates"),
                   "depth-sharded": ("logs", "grads", "updates"),
-                  UNET_PARALLEL: ("logs", "grads", "probs")}
+                  UNET_PARALLEL: ("logs", "grads", "probs"),
+                  SAM2_SPLIT: ("logs", "grads"), SAM2_DP: ("logs", "grads")}
+SAM2_STEPS = (SAM2_SPLIT, SAM2_DP)
 
 
 def _parallel_batches(dev: torch.device, seed: int = PARALLEL_SEED, steps=None) -> dict:
     """The batches of PARALLEL_STEPS (those named in ``steps``, all when
-    None): the two crops, the first alone, UNet3D's crop."""
+    None): the decoder's two crops and the first alone; the blob tomogram's
+    two crops (SAM2's data-parallel batch) and the first alone (UNet3D's and
+    SAM2's batch of one)."""
     steps = steps or [what for what, _ in PARALLEL_STEPS]
     out = {}
     if "data-parallel" in steps or "depth-sharded" in steps:
@@ -3969,17 +4136,25 @@ def _parallel_batches(dev: torch.device, seed: int = PARALLEL_SEED, steps=None) 
         out["data-parallel"] = crops
         out["depth-sharded"] = dataclasses.replace(
             crops, data=crops.data[:1], label=crops.label[:1], num_slices=crops.num_slices[:1])
-    if UNET_PARALLEL in steps:
-        out[UNET_PARALLEL] = _parallel_unet_batch(seed)
+    if {UNET_PARALLEL, SAM2_SPLIT, SAM2_DP} & set(steps):
+        # UNet3D's crop is the first of SAM2's two
+        crops = _parallel_blob_batch(seed, PARALLEL_WORLD if SAM2_DP in steps else 1)
+        out[SAM2_DP] = crops
+        out[UNET_PARALLEL] = out[SAM2_SPLIT] = dataclasses.replace(
+            crops, data=crops.data[:1], label=crops.label[:1], num_slices=crops.num_slices[:1])
     return {what: out[what] for what in steps}
 
 
 def _run_step(what: str, dev, batch, mesh_shape, fault=None, timed=0, seed=PARALLEL_SEED) -> dict:
+    if what in SAM2_STEPS:  # a SAM2 step takes ~10 s: its own step is timed
+        return _parallel_sam2_step(dev, batch, mesh_shape, fault, seed)
     step = _parallel_unet_step if what == UNET_PARALLEL else _parallel_step
     return step(dev, batch, mesh_shape, fault, timed, seed)
 
 
 def _agreement(what: str, got: dict, want: dict) -> dict:
+    if what in SAM2_STEPS:
+        return _sam2_agreement(got, want)
     return (_unet_agreement if what == UNET_PARALLEL else _step_agreement)(got, want)
 
 
@@ -4033,13 +4208,18 @@ def _parallel_rank(rank: int, world: int, tmp: str, device: str, seeds=(), steps
         for what, faults in PARALLEL_STEPS:
             batch = batches[what]
             run = _run_step(what, dev, batch, {"data": -1}, timed=PARALLEL_TIMED)
-            out[what] = {
-                "agreement": _agreement(what, run, ref[what]),
-                "faults": {f: _agreement(what, _run_step(what, dev, batch, {"data": -1}, f),
-                                         ref[what]) for f in faults},
-                **{k: run[k] for k in ("launches", "peak_gib", "ms", "slab", "dim", "identical")},
-            }
+            keys = ("launches", "peak_gib", "ms", "slab", "dim", "identical")
+            if what in SAM2_STEPS:
+                keys += ("gather_gb", "gather_s", "encoder")
+            out[what] = {"agreement": _agreement(what, run, ref[what]), "faults": {},
+                         **{k: run[k] for k in keys}}
             del run
+            for f in faults:
+                faulty = _run_step(what, dev, batch, {"data": -1}, f)
+                out[what]["faults"][f] = _agreement(what, faulty, ref[what])
+                if what in SAM2_STEPS:  # the same work on a fresh module: more readings
+                    out[what]["ms"] += faulty["ms"]
+                del faulty
             torch.cuda.empty_cache()
         mesh = make_mesh({"data": -1}, device=dev)
         run = _parallel_extract(dev, mesh, timed=True)
@@ -4065,9 +4245,12 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
     crop, TRAIN_DEPTH / PARALLEL_WORLD slices a rank) and the sharded DINOv2
     extraction of the serving tomogram (SLICE_BATCH / PARALLEL_WORLD slices
     a rank) and UNet3D's depth-sharded step (the UNet3D training cell's
-    crop, TRAIN_DEPTH / PARALLEL_WORLD slices a rank), with planted faults
-    that must read above the limits; launches, ms and peak memory per rank.
-    Returns each rank's launches."""
+    crop, TRAIN_DEPTH / PARALLEL_WORLD slices a rank) and SAM2's two steps
+    (SAM2Config.large() at full width on that crop: the frozen encoder split
+    over the ranks at batch 1, TRAIN_DEPTH / PARALLEL_WORLD slices a rank,
+    and the data-parallel step on two crops, one a rank), with planted
+    faults that must read above the limits; launches, ms and peak memory
+    per rank. Returns each rank's launches."""
     from cryovit_tpu_torch import kernels
 
     name = gpu_name_and_power()
@@ -4125,9 +4308,21 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
                     not _within(f))
         checks[f"{what}: every rank's parameters equal rank 0's after the step"] = all(
             rank[what]["identical"] for rank in ranks)
-    depth_ratio = max(r["depth-sharded"]["peak_gib"] for r in ranks) / ref["depth-sharded"]["peak_gib"]
+    depth_ratio = (max(r["depth-sharded"]["peak_gib"] for r in ranks)
+                   / ref["depth-sharded"]["peak_gib"])
     log("parallel", f"depth-sharded peak per rank / single process: {depth_ratio:.3f} ({name})")
+    _unet_parallel_report(ref, ranks, name, checks)
+    _sam2_parallel_report(ref, ranks, name, checks)
+    _extraction_report(ref, ranks, name, checks)
+    _report_checks(checks, "parallel phase")
+    per_rank = [{k: sum(run["launches"][k] for run in rank.values()) for k in kernels.KERNELS}
+                for rank in ranks]
+    return per_rank
 
+
+def _unet_parallel_report(ref: dict, ranks: list[dict], name: str, checks: dict) -> None:
+    """UNet3D's depth-sharded step in the parallel phase: each rank's
+    readings against the single process, its faults, the checks."""
     single = ref[UNET_PARALLEL]
     log("parallel", f"{UNET_PARALLEL}: single process slab {single['slab']}, launches "
         f"{ {k: n for k, n in single['launches'].items() if n} }, peak "
@@ -4160,6 +4355,58 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
     checks[f"{UNET_PARALLEL}: every rank's parameters equal rank 0's after the step"] = all(
         rank[UNET_PARALLEL]["identical"] for rank in ranks)
 
+
+def _sam2_parallel_report(ref: dict, ranks: list[dict], name: str, checks: dict) -> None:
+    """SAM2's two steps in the parallel phase: each rank's readings (ms,
+    peak against the single process, the pyramids' gather) and agreement,
+    its faults, the checks."""
+    want_dim = {SAM2_SPLIT: (None, True), SAM2_DP: (0, False)}
+    want_launches = {SAM2_SPLIT: SAM2_SPLIT_LAUNCHES, SAM2_DP: SAM2_STEP_LAUNCHES}
+
+    def line(what, a):
+        groups = ", ".join(f"{g} {c:.3g}/{z:.3g}" for g, (c, z) in a["groups"].items())
+        loss, cos, size = SAM2_PARALLEL_LIMITS[what]
+        return (f"|dloss| {a['loss']:.3g} (limit {loss}), gradient groups before the clip "
+                f"(1 - cos / |ln norm ratio|) {groups} (limits {cos} / {size}), grad norm "
+                f"{a['grad_norm']:.3g}")
+
+    for what in SAM2_STEPS:
+        single = ref[what]
+        log("parallel", f"{what}: single process batch {single['slab'][:2]}, launches "
+            f"{ {k: n for k, n in single['launches'].items() if n} }, peak "
+            f"{single['peak_gib']:.2f} GiB, step ms {' '.join(f'{t:.2f}' for t in single['ms'])} "
+            f"(the allocator cold; the warm batch-1 step: the SAM2 training phase's median) "
+            f"({name})")
+        for r, rank in enumerate(ranks):
+            run = rank[what]
+            log("parallel", f"{what} rank {r}: batch {run['slab'][:2]} (split dim {run['dim']}, "
+                f"encoder split {run['encoder']}), launches "
+                f"{ {k: n for k, n in run['launches'].items() if n} }, step ms "
+                f"{' '.join(f'{t:.2f}' for t in run['ms'])}, peak {run['peak_gib']:.2f} GiB "
+                f"({run['peak_gib'] / single['peak_gib']:.3f} of the single process's), pyramid "
+                f"gathers {run['gather_gb']:.3f} GB in {run['gather_s']:.3f} s (host, synced) "
+                f"({name}); step ms: the sound step (allocator cold), then each planted fault's "
+                f"(the same work, the allocator warm)")
+            log("parallel", f"{what} rank {r} against the single process: "
+                f"{line(what, run['agreement'])}")
+            checks[f"{what} rank {r} takes its step"] = (run["dim"], run["encoder"]) == want_dim[what]
+            checks[f"{what} rank {r} agrees with the single process"] = _sam2_within(
+                what, run["agreement"])
+            nonzero = {k: n for k, n in want_launches[what].items() if n}
+            checks[f"{what} rank {r} launches {nonzero} and nothing else"] = (
+                run["launches"] == want_launches[what])
+            for fault, f in run["faults"].items():
+                log("parallel", f"{what} rank {r}, planted fault ({PARALLEL_FAULTS[fault]}): "
+                    f"{line(what, f)}")
+                checks[f"{what} rank {r}: the planted fault '{fault}' reads above the limits"] = (
+                    not _sam2_within(what, f))
+        checks[f"{what}: every rank's trained parameters equal rank 0's after the step"] = all(
+            rank[what]["identical"] for rank in ranks)
+
+
+def _extraction_report(ref: dict, ranks: list[dict], name: str, checks: dict) -> None:
+    """The sharded DINOv2 extraction in the parallel phase: each rank's
+    readings against the single process, its fault, the checks."""
     single = ref["extraction"]
     log("parallel", f"extraction single process: launches "
         f"{ {k: n for k, n in single['launches'].items() if n} }, peak {single['peak_gib']:.2f} "
@@ -4178,15 +4425,11 @@ def parallel_phase(dev: torch.device, workdir: Path) -> list[dict[str, int]]:
             f["rel_l2"] > PARALLEL_FEATURES)
         checks[f"extraction rank {r} launches 40 flash_attention"] = (
             {k: n for k, n in run["launches"].items() if n} == {"flash_attention": 40})
-    _report_checks(checks, "parallel phase")
-    per_rank = [{k: sum(rank[what]["launches"][k]
-                        for what in ("data-parallel", "depth-sharded", UNET_PARALLEL, "extraction"))
-                 for k in kernels.KERNELS} for rank in ranks]
-    return per_rank
 
 
 LIMIT_KEYS = ("loss", "grad", "grad_median", "update", "grad_norm")
 UNET_LIMIT_KEYS = ("loss", "probs", "cos", "size")
+SAM2_LIMIT_KEYS = ("loss", "cos", "size", "grad_norm")
 
 
 def parallel_limits(dev: torch.device, workdir: Path, steps=None) -> dict:
@@ -4198,8 +4441,8 @@ def parallel_limits(dev: torch.device, workdir: Path, steps=None) -> dict:
     of PARALLEL_STEPS (those named in ``steps``, all when None) twice sound
     and once with each planted fault, against the single process's first
     run. Prints every reading and, for each step and reading (LIMIT_KEYS,
-    UNET_LIMIT_KEYS for UNet3D's), the largest sound value and each fault's
-    smallest; returns that summary."""
+    UNET_LIMIT_KEYS for UNet3D's, SAM2_LIMIT_KEYS for SAM2's), the largest
+    sound value and each fault's smallest; returns that summary."""
     name = gpu_name_and_power()
     steps = list(steps or [what for what, _ in PARALLEL_STEPS])
     tmp = workdir / "parallel_limits"
@@ -4224,11 +4467,15 @@ def parallel_limits(dev: torch.device, workdir: Path, steps=None) -> dict:
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(PARALLEL_WORLD)]
 
     def keys(what):
+        if what in SAM2_STEPS:
+            return SAM2_LIMIT_KEYS
         return UNET_LIMIT_KEYS if what == UNET_PARALLEL else LIMIT_KEYS
 
     def line(what, a):
-        worst = (f"(worst at {a['cos_at']} / {a['size_at']})" if what == UNET_PARALLEL
+        worst = (f"(worst at {a['cos_at']} / {a['size_at']})" if "cos_at" in a
                  else f"(worst at {a['grad_at']})")
+        if "losses" in a:
+            worst += f" (total loss {a['losses'][0]!r}, the reference's {a['losses'][1]!r})"
         return " ".join(f"{k} {a[k]:.4g}" for k in keys(what)) + " " + worst
 
     summary = {}
@@ -4444,8 +4691,9 @@ def main() -> int:
         # the kv_cache check's two tracking passes (uncached, cached)
         next(r for r in report["kernels"] if r["name"] == name)["sam2_kv_cache"] = {
             "launches": sam2_kv[name], "per_pass": SAM_BATCH_LAUNCHES[name], "passes": 6}
-    # rows 1 and 4-7 on the parallel phase's ranks (one data-parallel and
-    # one depth-sharded train step, one sharded extraction each)
+    # rows 1, 4-7 and 9-11 on the parallel phase's ranks (one data-parallel
+    # and one depth-sharded CryoVIT step, UNet3D's depth-sharded step, SAM2's
+    # encoder-split and data-parallel steps, one sharded extraction each)
     for row in report["kernels"]:
         if any(rank[row["name"]] for rank in parallel):
             row["parallel"] = {"launches_per_rank": [rank[row["name"]] for rank in parallel],

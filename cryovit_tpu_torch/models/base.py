@@ -97,6 +97,12 @@ class BaseModel:
     # the depth each rank's slab must be a multiple of (UNet3D: 2 ** pools);
     # a tomogram whose slabs would not be is replicated
     depth_multiple: int = 1
+    # for a module whose forward takes ``mesh=`` to split only its frozen
+    # per-slice encoder over the ranks, the rest running whole on every rank
+    # (SAM2), the most slices of a tomogram that encoder sees; a batch the
+    # batch axis does not split takes that step when ``min(D,
+    # encoder_split_depth)`` divides the mesh. None: no such encoder
+    encoder_split_depth: int | None = None
 
     def __init__(
         self,
@@ -132,13 +138,23 @@ class BaseModel:
     def apply(self, module: nn.Module, data, mesh=None) -> torch.Tensor:
         """Forward pass: ``(B, D, H, W, C)`` → probabilities ``(B, D, H, W)``.
         ``mesh`` (families with :attr:`depth_shardable` only): ``data`` is
-        this rank's depth slab of a depth-sharded batch."""
+        this rank's depth slab of a depth-sharded batch; (families with
+        :attr:`encoder_split_depth`) ``data`` is the whole batch and the
+        frozen encoder splits over the mesh."""
         return module(data) if mesh is None else module(data, mesh=mesh)
 
     def apply_with_aux(self, module: nn.Module, data, mesh=None) -> tuple[torch.Tensor, dict]:
         """Probabilities and the model's extra outputs for its own loss
         terms (SAM2's prompts); none here."""
         return self.apply(module, data, mesh), {}
+
+    def split_inputs(self, inputs, sharding):
+        """This rank's part of ``inputs`` (the module input made from the
+        whole batch) as ``sharding`` lays the batch out: its slice of the
+        batch axis (``dim`` 0), else ``inputs`` whole. None where the input
+        does not take that layout. A tensor takes any; a family whose
+        ``prepare_inputs`` makes another form overrides this."""
+        return sharding.local(inputs) if isinstance(inputs, torch.Tensor) else None
 
     def compute_losses(
         self, y_pred: torch.Tensor, y_true: torch.Tensor, mask: torch.Tensor,

@@ -15,8 +15,14 @@ Lightning wrapper, ``models/sam2.py:48-315``):
 - the total loss adds ``mask_loss``, the Dice loss of the sigmoid prompts;
 - ``prepare_inputs`` draws the conditioning slices (reference
   ``prepare_prompt_inputs``, ``models/sam2.py:404-443``) from the family's
-  own numpy ``Generator`` and passes cached ``sam_features`` pyramids on
-  when a file carries them.
+  own numpy ``Generator`` (rank 0's draw on every rank of a mesh, as JAX
+  draws once) and passes cached ``sam_features`` pyramids on when a file
+  carries them;
+- under a mesh (``encoder_split_depth``): a batch the batch axis splits takes
+  the data-parallel step, each rank tracking its own tomograms; a batch it
+  does not split (the reference's batch of one) hands the mesh to the
+  forward, which splits only the frozen encoder over the ranks
+  (``SAM2Model``), the rest running whole on every rank.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from cryovit_tpu_torch.models.sam2.config import SAM2Config
 from cryovit_tpu_torch.models.sam2.hiera import check_window_rule
 from cryovit_tpu_torch.models.sam2.model import SAM2Model, random_sam2_state_dict
 from cryovit_tpu_torch.ops.resize import resize_linear_2d
+from cryovit_tpu_torch.parallel.mesh import Mesh
 from cryovit_tpu_torch.types import ModelType
 
 logger = logging.getLogger(__name__)
@@ -67,7 +74,7 @@ class _SAM2Forward(SAM2Model):
     [0, 1]; returns ``{"preds", "prompts"}`` probabilities ``(B, D, H, W)``."""
 
     def forward(self, data: torch.Tensor, backbone: dict | None = None, order=None,
-                num_cond=None) -> dict[str, torch.Tensor]:
+                num_cond=None, mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
         b, d, h, w = data.shape[:4]
         s = self.cfg.image_size
         x = data[..., 0].float()
@@ -75,7 +82,7 @@ class _SAM2Forward(SAM2Model):
             x, d = x[:, :MAX_SAM_DEPTH], MAX_SAM_DEPTH
         if (h, w) != (s, s):
             x = resize_linear_2d(x, s, s)
-        out = super().forward(x, backbone, order=order, num_cond=num_cond)
+        out = super().forward(x, backbone, order=order, num_cond=num_cond, mesh=mesh)
         preds, prompts = out["preds"], out["prompts"]
         if (h, w) != (s, s):
             preds, prompts = resize_linear_2d(preds, h, w), resize_linear_2d(prompts, h, w)
@@ -117,6 +124,7 @@ class SAM2(BaseModel):
     seed of the cond-slice draws)."""
 
     model_type = ModelType.SAM2
+    encoder_split_depth = MAX_SAM_DEPTH
 
     def __init__(self, **kwargs: Any) -> None:
         custom = dict(kwargs.get("custom_kwargs") or {})
@@ -176,11 +184,12 @@ class SAM2(BaseModel):
 
     # ---- inputs, forward and losses ---------------------------------------
 
-    def _sample_cond_slices(self, d_eff: int, min_slices: int):
+    def _sample_cond_slices(self, d_eff: int, min_slices: int, mesh: Mesh | None = None):
         """The conditioning slices: in train mode ``k ~ U[1, n]`` when the
         train flag is set, the eval count otherwise; the cond set is
         ``{0} ∪ sample(1..min_slices)``. ``(order, num_cond)``, or
-        ``(None, None)`` for the default single-cond path."""
+        ``(None, None)`` for the default single-cond path. On a ``mesh``
+        every rank draws and takes rank 0's draw."""
         phase = 0 if self.train_mode else 1
         n = int(self.num_init_cond_slices[phase])
         if n <= 1:
@@ -192,18 +201,22 @@ class SAM2(BaseModel):
         if n > 1:
             cond += self.rng.choice(np.arange(1, min_slices), size=n - 1, replace=False).tolist()
         rest = [i for i in range(d_eff) if i not in cond]
+        if mesh is not None and mesh.size > 1:
+            drawn = mesh.broadcast_(torch.tensor([len(cond), *cond, *rest], device=mesh.device))
+            return drawn[1:].tolist(), int(drawn[0])
         return cond + rest, len(cond)
 
-    def prepare_inputs(self, data: torch.Tensor, items):
+    def prepare_inputs(self, data: torch.Tensor, items, mesh: Mesh | None = None):
         """``data`` on the device, plus the cond-slice draw (as ``order`` /
-        ``num_cond``) and, with ``use_cache_features`` and one item carrying
-        ``sam_features``, its cached pyramids (depth-padded or cut to the
-        depth the forward sees) in place of the live encoder."""
+        ``num_cond``; on a ``mesh``, rank 0's) and, with
+        ``use_cache_features`` and one item carrying ``sam_features``, its
+        cached pyramids (depth-padded or cut to the depth the forward sees)
+        in place of the live encoder."""
         d_eff = min(int(data.shape[1]), MAX_SAM_DEPTH)
         min_slices = d_eff
         if items:
             min_slices = min(min(int(it.label.shape[0]) for it in items), d_eff)
-        order, num_cond = self._sample_cond_slices(d_eff, max(min_slices, 1))
+        order, num_cond = self._sample_cond_slices(d_eff, max(min_slices, 1), mesh)
         extra = {} if order is None else {"order": order, "num_cond": num_cond}
         aux = (items[0].aux_data or {}) if items and len(items) == 1 else {}
         if not self.use_cache_features or "sam_features" not in aux:
@@ -222,15 +235,28 @@ class SAM2(BaseModel):
         backbone = {k: to_flat(cached[k]) for k in ("backbone_fpn", "vision_pos_enc")}
         return {"slices": data, "backbone": backbone, **extra}
 
-    def apply(self, module, data):
-        return self.apply_with_aux(module, data)[0]
+    def split_inputs(self, inputs, sharding):
+        """The tensor input as the base class splits it; of the cond-slice
+        dict the ``slices`` split and the draw stays whole. Cached pyramids
+        take neither the batch split nor the encoder split (no encoder runs
+        on them): None."""
+        if not isinstance(inputs, dict):
+            return super().split_inputs(inputs, sharding)
+        if "backbone" in inputs:
+            return inputs if sharding.dim is None and not sharding.encoder else None
+        return {**inputs, "slices": sharding.local(inputs["slices"])}
 
-    def apply_with_aux(self, module, data):
+    def apply(self, module, data, mesh=None):
+        return self.apply_with_aux(module, data, mesh)[0]
+
+    def apply_with_aux(self, module, data, mesh=None):
+        """Probabilities and the prompts; ``mesh`` splits the live encoder
+        over its ranks, every rank holding the whole batch."""
         if isinstance(data, dict):
             out = module(data["slices"], data.get("backbone"), order=data.get("order"),
-                         num_cond=data.get("num_cond"))
+                         num_cond=data.get("num_cond"), mesh=mesh)
         else:
-            out = module(data)
+            out = module(data, mesh=mesh)
         return out["preds"], {"prompts": out["prompts"]}
 
     def compute_losses(self, y_pred, y_true, mask, aux=None, mesh=None):

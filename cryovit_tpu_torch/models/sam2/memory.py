@@ -65,10 +65,13 @@ def _rope_tables(d: int, grid: tuple[int, int], repeat: int, dtype: torch.dtype,
     key = (d, grid, repeat, dtype, device)
     if key not in _ROPE_TABLES:
         ang = np.tile(_axial_angles(d, grid), (repeat, 1))
-        _ROPE_TABLES[key] = tuple(
-            torch.from_numpy(f(ang)).to(device=device, dtype=dtype)[None, :, None, :]
-            for f in (np.cos, np.sin)
-        )
+        # normal tensors even under inference_mode, so a later train step
+        # may save them for its backward
+        with torch.inference_mode(False):
+            _ROPE_TABLES[key] = tuple(
+                torch.from_numpy(f(ang)).to(device=device, dtype=dtype)[None, :, None, :]
+                for f in (np.cos, np.sin)
+            )
     return _ROPE_TABLES[key]
 
 

@@ -33,6 +33,14 @@ patch embed, qkv scales folded for the kernels, weights in the compute
 dtype) made once from the f32 weights this module holds. On a GPU in bf16
 its Hiera-L stage-3 blocks run the window kernels (rows 9–11).
 
+With ``forward(..., mesh=...)`` (a mesh of more than one rank, every rank
+holding the whole batch) the encoder is split over the ranks: each encodes
+its equal, contiguous share of the ``B·D`` slices and every pyramid level is
+gathered whole (``Mesh.gather``, exact). No gradient crosses the gather, as
+the encoder is frozen, so the prompt predictor, the prompt encoder, the
+tracking loop and the resize run on every rank over the whole batch and
+give the single process's outputs and gradients.
+
 Parameters carry the reference's trained state-dict names: the SAM2Base
 tree under ``model.`` and the predictor under ``prompt_predictor.``.
 """
@@ -60,6 +68,7 @@ from cryovit_tpu_torch.models.sam2.memory import MemoryAttention, MemoryEncoder,
 from cryovit_tpu_torch.models.sam2.prompt_predictor import PromptPredictor
 from cryovit_tpu_torch.models.sam2.prompts import PromptEncoder
 from cryovit_tpu_torch.ops.resize import resize_linear_2d
+from cryovit_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["MemoryBank", "SAM2Model", "random_sam2_state_dict"]
 
@@ -119,13 +128,14 @@ class _SAM2Base(nn.Module):
 
 class SAM2Model(nn.Module):
     """``forward(slices (B, D, S, S), backbone=None, order=None,
-    num_cond=None)`` → ``{"preds": (B, D, S, S) sigmoid probabilities,
-    "prompts": (B, D, S, S) mask-prompt logits}``.
+    num_cond=None, mesh=None)`` → ``{"preds": (B, D, S, S) sigmoid
+    probabilities, "prompts": (B, D, S, S) mask-prompt logits}``.
 
     ``backbone`` is a cached pyramid ``{"backbone_fpn", "vision_pos_enc"}``
     of flat ``(B·D, h, w, C)`` levels (the live encoder runs otherwise);
     ``order`` the processing order with the cond slices first, ``num_cond``
-    how many of them are cond slices (defaults: natural order, one).
+    how many of them are cond slices (defaults: natural order, one);
+    ``mesh`` splits the live encoder over its ranks (see above).
     ``kv_cache`` takes the cached memory attention (see above)."""
 
     def __init__(self, cfg: SAM2Config | None = None, lora_rank: int = 128,
@@ -159,16 +169,28 @@ class SAM2Model(nn.Module):
         return self._encoder_copy[key]
 
     @torch.no_grad()
-    def encode_images(self, slices: torch.Tensor) -> dict[str, list[torch.Tensor]]:
+    def encode_images(self, slices: torch.Tensor,
+                      mesh: Mesh | None = None) -> dict[str, list[torch.Tensor]]:
         """``(N, S, S)`` grayscale slices → the backbone pyramids, in chunks
-        of ``encoder_chunk`` slices."""
+        of ``encoder_chunk`` slices. With a ``mesh`` of more than one rank
+        this rank encodes only its share of the ``N`` slices (``N`` must
+        divide by the mesh size) and each level is gathered whole."""
         enc = self.compute_encoder()
         n = slices.shape[0]
-        ch = self.encoder_chunk or n
-        outs = [enc(slices[i : i + ch, ..., None]) for i in range(0, n, ch)]
+        split = mesh is not None and mesh.size > 1
+        if split:
+            if n % mesh.size:
+                raise ValueError(f"{n} slices do not split over a mesh of {mesh.size}")
+            k = n // mesh.size
+            slices = slices[mesh.rank * k : (mesh.rank + 1) * k]
+        ch = self.encoder_chunk or slices.shape[0]
+        outs = [enc(slices[i : i + ch, ..., None]) for i in range(0, slices.shape[0], ch)]
         levels = range(len(outs[0]["backbone_fpn"]))
+        fpn = [torch.cat([o["backbone_fpn"][lvl] for o in outs]) for lvl in levels]
+        if split:
+            fpn = [mesh.gather(f) for f in fpn]
         # the position codes are the same for every slice: one, broadcast
-        return {"backbone_fpn": [torch.cat([o["backbone_fpn"][lvl] for o in outs]) for lvl in levels],
+        return {"backbone_fpn": fpn,
                 "vision_pos_enc": [outs[0]["vision_pos_enc"][lvl][:1].expand(n, -1, -1, -1)
                                    for lvl in levels]}
 
@@ -330,11 +352,11 @@ class SAM2Model(nn.Module):
     # ---- the tracking pass ------------------------------------------------
 
     def forward(self, slices: torch.Tensor, backbone: dict | None = None,
-                order=None, num_cond=None) -> dict[str, torch.Tensor]:
+                order=None, num_cond=None, mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
         with casts_kept_in(self._head_casts):
-            return self._track(slices, backbone, order, num_cond)
+            return self._track(slices, backbone, order, num_cond, mesh)
 
-    def _track(self, slices, backbone, order, num_cond) -> dict[str, torch.Tensor]:
+    def _track(self, slices, backbone, order, num_cond, mesh=None) -> dict[str, torch.Tensor]:
         cfg = self.cfg
         b, d, s, _ = slices.shape
         order = list(range(d)) if order is None else [int(i) for i in order]
@@ -342,7 +364,7 @@ class SAM2Model(nn.Module):
         if sorted(order) != list(range(d)):
             raise ValueError(f"order must be a permutation of range({d}): {order}")
         if backbone is None:
-            backbone = self.encode_images(slices.reshape(b * d, s, s))
+            backbone = self.encode_images(slices.reshape(b * d, s, s), mesh)
         fpn, pos = backbone["backbone_fpn"], backbone["vision_pos_enc"]
 
         def unflat(x):

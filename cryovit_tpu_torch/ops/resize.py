@@ -74,7 +74,10 @@ def _on_device(matrix, in_size: int, out_size: int, device: torch.device) -> tor
     the device's queue drains, which a per-slice loop must not pay)."""
     key = (matrix, in_size, out_size, device)
     if key not in _DEVICE_MATRICES:
-        _DEVICE_MATRICES[key] = torch.from_numpy(matrix(in_size, out_size).copy()).to(device)
+        # a normal tensor even under inference_mode, so a later train step
+        # may save it for its backward
+        with torch.inference_mode(False):
+            _DEVICE_MATRICES[key] = torch.from_numpy(matrix(in_size, out_size).copy()).to(device)
     return _DEVICE_MATRICES[key]
 
 

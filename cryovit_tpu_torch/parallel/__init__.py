@@ -14,6 +14,7 @@ from cryovit_tpu_torch.parallel.mesh import (
 )
 from cryovit_tpu_torch.parallel.spatial import (
     batch_divides,
+    encoder_divides,
     halo_exchange,
     place_batch,
     shard_batch_spatial,
@@ -28,6 +29,7 @@ __all__ = [
     "all_reduce_sum",
     "batch_divides",
     "batch_sharding",
+    "encoder_divides",
     "global_sum",
     "halo_exchange",
     "make_mesh",

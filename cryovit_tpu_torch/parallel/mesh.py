@@ -174,14 +174,15 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
 def global_sum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     """The JAX package's ``_gsum`` (``models/losses.py``): ``x.sum()``, and
     with a mesh its value summed over the ranks while autograd sees only the
-    local sum (``s + (allreduce(s) − s)``, the remainder detached). So each
-    rank's gradient is its own data's contribution at the global sums, and
-    the trainer's sum of the ranks' gradients is the global gradient."""
+    local sum (``allreduce(s) + (s − s)``, the first term detached: the value
+    is the all-reduce's bit for bit, the same on every rank). So each rank's
+    gradient is its own data's contribution at the global sums, and the
+    trainer's sum of the ranks' gradients is the global gradient."""
     s = x.sum()
     if mesh is None:
         return s
     local = s.detach()
-    return s + (mesh.all_reduce_(local.clone()) - local)
+    return mesh.all_reduce_(local.clone()) + (s - local)
 
 
 def _env_world() -> tuple[int, int, int] | None:
@@ -277,16 +278,27 @@ def make_mesh(
 class Sharding:
     """How a batch lies on the mesh: ``dim`` is the array axis split over
     the whole mesh (0 the batch, 1 the depth), None for a replicated batch,
-    which every rank holds whole."""
+    which every rank holds whole. ``encoder`` (with ``dim`` None): the batch
+    is whole on every rank, and the model's frozen per-slice encoder splits
+    its slices over the mesh (SAM2 at a batch of one); its losses, metrics,
+    gradients and predictions are a replicated batch's."""
 
     mesh: Mesh
     dim: int | None
+    encoder: bool = False
 
     def local(self, x):
         """This rank's part of ``x`` (an array or tensor): its equal slice of
-        ``dim``, or ``x`` itself when replicated or of too few dims."""
+        ``dim``, or ``x`` itself when replicated or of too few dims. A dict
+        does not split here (a family splits its own input form:
+        ``BaseModel.split_inputs``): it raises."""
         n = self.mesh.size
-        if self.dim is None or n == 1 or getattr(x, "ndim", 0) <= self.dim:
+        if self.dim is None or n == 1:
+            return x
+        if isinstance(x, dict):
+            raise ValueError(f"a dict with entries {sorted(x)} does not split along axis "
+                             f"{self.dim}: the model family splits its own inputs")
+        if getattr(x, "ndim", 0) <= self.dim:
             return x
         k = x.shape[self.dim] // n
         index = [slice(None)] * x.ndim

@@ -26,6 +26,14 @@ else replicate with a one-time warning. JAX shards the depth whenever it
 divides the mesh, for every model; the port replicates a UNet3D tomogram
 whose slabs its stride-2 pools would split (ROADMAP Queue C, deliberate
 difference 13), with the same numbers.
+
+SAM2 (whose input the family prepares from the whole batch, so the trainer
+places it) keeps that order with its own middle step: batch axis, else its
+frozen encoder's slices split over the ranks while every rank holds the
+whole batch (:func:`encoder_divides`: the depth the encoder sees,
+``min(D, 255)``, divides the mesh; so a 256-slice tomogram, cut to 255,
+replicates), else replicate with the warning. A batch of one with cached
+pyramids has no encoder to split and is replicated without a warning.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "batch_divides",
+    "encoder_divides",
     "halo_exchange",
     "place_batch",
     "shard_batch_spatial",
@@ -84,12 +93,26 @@ def batch_divides(mesh: Mesh, *arrays) -> bool:
         a.shape[0] % mesh.size == 0 for a in arrays if a is not None)
 
 
-def warn_replicated(batch: TomogramBatch, mesh: Mesh, depth: bool = True) -> None:
-    """The one-time warning that a batch is held whole by every rank."""
+def encoder_divides(mesh: Mesh, depth: int) -> bool:
+    """Whether a frozen per-slice encoder may split its slices over the mesh
+    (SAM2, at a batch the batch axis does not split): the data axis is the
+    whole mesh of more than one rank, and it divides ``depth``, the slices of
+    a tomogram the encoder sees."""
+    return mesh.size > 1 and _data_is_whole(mesh) and depth % mesh.size == 0
+
+
+def warn_replicated(batch: TomogramBatch, mesh: Mesh, depth: bool = True,
+                    encoder_depth: int | None = None) -> None:
+    """The one-time warning that a batch is held whole by every rank;
+    ``encoder_depth`` names the depth a splittable encoder sees."""
     global _warned_replicate
     if _warned_replicate:
         return
     _warned_replicate = True
+    if encoder_depth is not None:
+        note = f" (its encoder sees {encoder_depth} slices of a tomogram)"
+    else:
+        note = "" if depth else " (this model has no depth-sharded forward)"
     logger.warning(
         "batch (B=%d, D=%d) divides neither the batch nor the depth axis "
         "by the %d-way %r mesh axis%s; replicating (redundant compute). "
@@ -98,7 +121,7 @@ def warn_replicated(batch: TomogramBatch, mesh: Mesh, depth: bool = True) -> Non
         batch.data.shape[1],
         mesh.shape.get(DATA_AXIS, 1),
         DATA_AXIS,
-        "" if depth else " (this model has no depth-sharded forward)",
+        note,
     )
 
 

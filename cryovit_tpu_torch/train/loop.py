@@ -34,17 +34,21 @@ steps, written out on ``torch.distributed``):
 
 - every rank iterates the same loader (same seed, same order) and keeps its
   part of each batch (:meth:`Trainer.place`): a slice of the batch axis
-  when it divides the mesh (data parallelism), else, for a family with a
-  depth-sharded forward (CryoVIT, and UNet3D when each slab is a multiple
-  of ``2 ** pools`` slices), a slab of the depth axis, else the whole batch
-  (the replicated step: SAM2's dict inputs, a batch of one for SAM2 or for
-  a UNet3D depth its pools would split, the mito-masked test path);
-- the losses and metrics carry the mesh (global values, equal to the
-  single-process ones), and the parameter gradients are summed over the
-  ranks (JAX's ``psum(grads)``; averaging, DDP's default, would be wrong by
-  the world size since the losses are already global) before the norms,
-  clipping and AdamW; the replicated step takes rank 0's gradients, so the
-  parameters stay identical on every rank;
+  when it divides the mesh (data parallelism; SAM2's dict input splits its
+  ``slices`` and keeps the cond-slice draw whole), else, for a family with
+  a depth-sharded forward (CryoVIT, and UNet3D when each slab is a
+  multiple of ``2 ** pools`` slices), a slab of the depth axis, else the
+  whole batch: the replicated step (a UNet3D depth its pools would split,
+  SAM2's cached pyramids, the mito-masked test path), which for SAM2 hands
+  the mesh to the forward to split its frozen encoder when the depth it
+  sees divides the mesh (the encoder-split step);
+- the losses and metrics of a split batch carry the mesh (global values,
+  equal to the single-process ones), and the parameter gradients are
+  summed over the ranks (JAX's ``psum(grads)``; averaging, DDP's default,
+  would be wrong by the world size since the losses are already global)
+  before the norms, clipping and AdamW; the replicated and encoder-split
+  steps compute the whole batch's losses on every rank and take rank 0's
+  gradients, so the parameters stay identical on every rank;
 - the parameters and optimizer state start from rank 0's, SWA runs on every
   rank, every rank holds the same logs and the gathered predictions, and
   rank 0 alone runs the loggers, the checkpoint and the callbacks that
@@ -68,7 +72,12 @@ from cryovit_tpu_torch.config import PRECISION_DTYPES
 from cryovit_tpu_torch.models.base import BaseModel, clip_gradients, prediction_mask
 from cryovit_tpu_torch.models.cryovit import BF16_KERNELS
 from cryovit_tpu_torch.parallel.mesh import Mesh, Sharding, make_mesh, replicate
-from cryovit_tpu_torch.parallel.spatial import batch_divides, place_batch, warn_replicated
+from cryovit_tpu_torch.parallel.spatial import (
+    batch_divides,
+    encoder_divides,
+    place_batch,
+    warn_replicated,
+)
 from cryovit_tpu_torch.train.swa import StochasticWeightAveraging
 from cryovit_tpu_torch.types import BatchedModelResult, TomogramBatch, TomogramData
 
@@ -146,14 +155,6 @@ class Trainer:
     def _multi(self) -> bool:
         return self.mesh is not None and self.mesh.size > 1
 
-    def _dp_eligible(self, inputs, label) -> bool:
-        """Whether a batch can take the data-parallel step: plain tensor
-        inputs (SAM2's dicts take the replicated step) whose batch axis
-        splits over the mesh (:func:`batch_divides`)."""
-        if not self._multi() or isinstance(inputs, dict) or not hasattr(inputs, "shape"):
-            return False
-        return batch_divides(self.mesh, inputs, label)
-
     def place(
         self, model: BaseModel, batch: TomogramBatch, items, replicated: bool = False,
         labels: bool = True,
@@ -163,29 +164,43 @@ class Trainer:
         without one): the batch axis, else the depth axis (families with a
         depth-sharded forward, slabs of a multiple of their
         ``depth_multiple``), else the whole batch (``replicated`` asks for
-        that). A family with ``prepare_inputs`` builds its input from
-        the whole batch, as in JAX, and keeps its slice when that input is a
-        tensor."""
+        that). A family with ``prepare_inputs`` builds its input from the
+        whole batch, as in JAX (its cond-slice draw rank 0's), and keeps
+        its slice (``split_inputs``) when the batch axis splits; else a
+        family with ``encoder_split_depth`` takes the encoder-split step
+        when the depth its encoder sees divides the mesh (the whole batch,
+        the mesh handed to the forward), and replicates without a warning
+        an input its encoder does not run on (SAM2's cached pyramids)."""
         if not self._multi():
             data, label = self.to_device(batch, labels)
             return self.prepare(model, data, items), label, None
         whole = Sharding(self.mesh, None)
-        if replicated:
-            data, label = self.to_device(batch, labels)
-            return self.prepare(model, data, items), label, whole
-        if getattr(model, "prepare_inputs", None) is None:
+        prepare = getattr(model, "prepare_inputs", None)
+        if prepare is None:
+            if replicated:
+                data, label = self.to_device(batch, labels)
+                return data, label, whole
             placed, sharding = place_batch(batch, self.mesh, depth=model.depth_shardable,
                                            multiple=model.depth_multiple)
             data, label = self.to_device(placed, labels)
             return data, label, sharding
         data, label = self.to_device(batch, labels)
-        inputs = model.prepare_inputs(data, items)
-        if self._dp_eligible(inputs, label):
+        inputs = prepare(data, items, mesh=self.mesh)
+        if not replicated and batch_divides(self.mesh, data):
             sharding = Sharding(self.mesh, 0)
-            local = None if label is None else sharding.local(label)
-            return sharding.local(inputs), local, sharding
-        if not batch_divides(self.mesh, batch.data):
-            warn_replicated(batch, self.mesh, depth=False)
+            local = model.split_inputs(inputs, sharding)
+            if local is not None:
+                return local, None if label is None else sharding.local(label), sharding
+        depth = None
+        if model.encoder_split_depth is not None:
+            encoder = Sharding(self.mesh, None, encoder=True)
+            if model.split_inputs(inputs, encoder) is None:
+                return inputs, label, whole  # no encoder runs on this input
+            depth = min(batch.data.shape[1], model.encoder_split_depth)
+            if encoder_divides(self.mesh, depth):
+                return inputs, label, encoder
+        if not replicated and not batch_divides(self.mesh, batch.data):
+            warn_replicated(batch, self.mesh, depth=False, encoder_depth=depth)
         return inputs, label, whole
 
     @staticmethod
@@ -195,13 +210,16 @@ class Trainer:
 
     @staticmethod
     def _forward(model: BaseModel, module: nn.Module, data, sharding: Sharding | None):
-        if sharding is not None and sharding.dim == 1:
+        """The family's forward, handed the mesh for a depth slab or an
+        encoder split."""
+        if sharding is not None and (sharding.dim == 1 or sharding.encoder):
             return model.apply_with_aux(module, data, mesh=sharding.mesh)
         return model.apply_with_aux(module, data)
 
     def _reduce_gradients(self, sharding: Sharding | None) -> None:
         """The gradients of the optimizer's parameters summed over the ranks
-        of a sharded batch, or rank 0's for a replicated one."""
+        of a sharded batch, or rank 0's for a replicated one (the
+        encoder-split step's too: each rank's are the whole batch's)."""
         if sharding is None or sharding.mesh.size == 1:
             return
         by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
