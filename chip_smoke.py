@@ -150,7 +150,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    32/32/3 launches and 29 int8 products a batch, the pyramids against the
    bf16 ones per level, slices/s, peak memory, device ms of one encoder
    batch beside the bf16 encoder's.
-11. UNet3D training main path — ``train --model unet3d`` one step below its
+11. foundation weights — the JAX package's converted weights, as a
+   ``model_dir`` set up with its ``tools/convert_*.py`` holds them: a
+   full-width ViT-g/14 tree (scanned, patch kernel folded, f32) and a
+   Hiera-L encoder tree drawn from seeds with numpy and written as flax
+   msgpack (``write_flax_msgpack``; ViT-g's two leaves over 2^30 bytes
+   chunked as flax chunks them) to ``DINOv2/dinov2_vitg14_reg.msgpack`` and
+   ``SAM2/sam2_encoder.msgpack``; then, in a process of its own,
+   ``run_sam`` and ``run_dino`` on a 64×512×512 tomogram from those
+   directories: exactly 32/32/3 launches of rows 9/10/11 and 40 of row 1,
+   features bit for bit those of extractors built from the same trees
+   converted directly; each file's GB, the loader's seconds and the loading
+   process's host peak resident set.
+12. UNet3D training main path — ``train --model unet3d`` one step below its
    file readers: a synthetic 128×512×512 blob tomogram's raw voxels,
    ``Trainer.fit`` of the full-width U-Net (bf16 on f32 masters, AdamW lr
    3e-3, SWA) for 6 epochs, its ``.model`` reloaded and scored by
@@ -158,7 +170,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    conv3d_dm_dw), the step time (median of 5), voxels/s, epoch times, peak
    memory and a profile of one step split into the port's kernels, cuDNN,
    copies and the norm/GELU glue.
-12. SAM2 training main path — ``train --model sam2`` one step below its
+13. SAM2 training main path — ``train --model sam2`` one step below its
    file readers: a synthetic 128×512×512 blob tomogram's raw voxels,
    ``Trainer.fit`` of ``SAM2Config.large()`` (sam2.1_hiera_l at 512², LoRA
    r = α = 128) at full width, bf16 on f32 masters, AdamW lr 5e-5 and
@@ -175,7 +187,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    uncached and cached: max|dprob| and mask agreement against limits twice
    the CPU's bf16 reading of the same pass at tiny_test widths, device ms
    and host wall per slice, and exactly 32/32/3 launches each.
-13. parallel — ``cryovit_tpu_torch.parallel`` on the card: 2 ranks spawned
+14. parallel — ``cryovit_tpu_torch.parallel`` on the card: 2 ranks spawned
    on the one card (``torch.multiprocessing``, kernels built by the parent
    first), joined by an explicit gloo group (NCCL refuses two ranks on one
    device; gloo's ``all_reduce`` and ``broadcast`` take CUDA tensors
@@ -231,6 +243,7 @@ import json
 import math
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -408,8 +421,11 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
+_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} {time.perf_counter() - _START:.1f} s] {msg}", flush=True)
 
 
 def gpu_name_and_power() -> str:
@@ -4507,6 +4523,445 @@ def parallel_limits(dev: torch.device, workdir: Path, steps=None) -> dict:
     return summary
 
 
+# ---- the JAX package's converted foundation weights (model_dir) -------------------
+
+# flax.serialization.MAX_CHUNK_SIZE: an array of more bytes is written as a
+# __msgpack_chunked_array__ dict of pieces of at most this many bytes
+FLAX_MAX_CHUNK = 2**30
+# the seeds of the ViT-g and Hiera-L trees; a large leaf is drawn in
+# FILL_PIECES pieces on as many threads, each piece from its own child seed, so
+# the values do not depend on the threads' timing
+FOUNDATION_SEEDS = {"dinov2": 31, "sam2": 32}
+FILL_PIECES = 8
+# model_dir's subdirectory of each family, as configs/paths name them
+FOUNDATION_DIRS = {"dinov2": "DINOv2", "sam2": "SAM2"}
+
+
+def _mp_uint(n: int) -> bytes:
+    """A non-negative int in msgpack's smallest form."""
+    if n < 0x80:
+        return bytes([n])
+    for code, fmt in ((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"), (0xcf, ">Q")):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"int out of msgpack's range: {n}")
+
+
+def _mp_head(n: int, fix: int | None, fix_max: int, codes: tuple) -> bytes:
+    """The header of a str, bin, array or map of ``n`` bytes or items: its
+    fix form ``fix | n`` up to ``fix_max``, else the 8-, 16- or 32-bit
+    length form of ``codes`` (None where the type has none)."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt in zip(codes, (">B", ">H", ">I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"length out of msgpack's range: {n}")
+
+
+def _mp_str(s: str) -> bytes:
+    data = s.encode()
+    return _mp_head(len(data), 0xa0, 31, (0xd9, 0xda, 0xdb)) + data
+
+
+_MP_MAP, _MP_ARRAY = (0x80, 15, (None, 0xde, 0xdf)), (0x90, 15, (None, 0xdc, 0xdd))
+
+
+def _mp_ndarray(f, arr) -> None:
+    """flax's ext 1: the msgpack ``[shape, dtype name, C-order bytes]``."""
+    import numpy as np
+
+    arr = arr if arr.flags.c_contiguous else arr.copy(order="C")  # 0-d stays 0-d
+    payload = (_mp_head(3, *_MP_ARRAY) + _mp_head(arr.ndim, *_MP_ARRAY)
+               + b"".join(_mp_uint(int(d)) for d in arr.shape) + _mp_str(arr.dtype.name)
+               + _mp_head(arr.nbytes, None, 0, (0xc4, 0xc5, 0xc6)))
+    n = len(payload) + arr.nbytes
+    fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    head = bytes([fixext[n]]) if n in fixext else _mp_head(n, None, 0, (0xc7, 0xc8, 0xc9))
+    f.write(head + b"\x01" + payload)
+    f.write(arr.reshape(-1).view(np.uint8))
+
+
+def write_flax_msgpack(f, tree, max_chunk: int = FLAX_MAX_CHUNK) -> None:
+    """``flax.serialization.to_bytes(tree)`` written to the binary file
+    ``f`` leaf by leaf, without flax and without a copy of the tree, for a
+    tree of dicts with str keys, numpy array leaves and non-negative ints:
+    an array of more than ``max_chunk`` bytes as flax's
+    ``__msgpack_chunked_array__`` dict of its flat pieces."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        f.write(_mp_head(len(tree), *_MP_MAP))
+        for key, value in tree.items():
+            f.write(_mp_str(key))
+            write_flax_msgpack(f, value, max_chunk)
+    elif isinstance(tree, np.ndarray) and tree.nbytes > max_chunk:
+        per = max(1, int(max_chunk / tree.dtype.itemsize))
+        flat = tree.reshape(-1)
+        f.write(_mp_head(3, *_MP_MAP) + _mp_str("__msgpack_chunked_array__") + b"\xc3"
+                + _mp_str("shape"))
+        write_flax_msgpack(f, {str(i): int(d) for i, d in enumerate(tree.shape)})
+        starts = range(0, flat.size, per)
+        f.write(_mp_str("chunks") + _mp_head(len(starts), *_MP_MAP))
+        for i, start in enumerate(starts):
+            f.write(_mp_str(str(i)))
+            _mp_ndarray(f, flat[start:start + per])
+    elif isinstance(tree, np.ndarray):
+        _mp_ndarray(f, tree)
+    elif isinstance(tree, int) and not isinstance(tree, bool) and tree >= 0:
+        f.write(_mp_uint(tree))
+    else:
+        raise TypeError(f"not written by this writer: {type(tree).__name__}")
+
+
+def _filled(shape, scale: float, offset: float, seed: list[int]):
+    """f32 ``offset + scale·U[-1, 1)`` of ``shape`` from ``seed``: a leaf of
+    2^22 values or more in FILL_PIECES pieces on as many threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    out = np.empty(shape, np.float32)
+    flat = out.reshape(-1)
+    n = FILL_PIECES if flat.size >= 1 << 22 else 1
+    seqs = np.random.SeedSequence(seed).spawn(n)
+
+    def fill(i):
+        piece = flat[i * flat.size // n:(i + 1) * flat.size // n]
+        np.random.default_rng(seqs[i]).random(out=piece, dtype=np.float32)
+        piece *= 2.0 * scale
+        piece += offset - scale
+
+    if n == 1:
+        fill(0)
+    else:
+        with ThreadPoolExecutor(n) as pool:
+            list(pool.map(fill, range(n)))
+    return out
+
+
+def vitg_jax_tree() -> dict:
+    """The JAX package's DINOv2 params of ``DinoV2Config.giant()`` as its
+    ``tools/convert_dinov2.py`` writes them: scanned (each block leaf with a
+    leading depth axis), the patch kernel folded to one channel ``(p·p, E)``,
+    Dense kernels ``(in, out)``, f32. Kernels lecun-uniform, LayerNorm scales
+    1 ± 0.1, LayerScale AGREEMENT_LAYERSCALE ± 0.05 (the seeded 1e-5 would
+    leave the blocks out of the features), the rest ± 0.02."""
+    from cryovit_tpu_torch.models.dinov2 import DinoV2Config
+
+    cfg = DinoV2Config.giant()
+    e, d, p, seed = cfg.embed_dim, cfg.depth, cfg.patch_size, FOUNDATION_SEEDS["dinov2"]
+    count = iter(range(10**6))
+
+    def u(shape, scale=0.02, offset=0.0):
+        return _filled(shape, scale, offset, [seed, next(count)])
+
+    def dense(n_in, n_out):
+        return {"kernel": u((d, n_in, n_out), math.sqrt(3.0 / n_in)), "bias": u((d, n_out))}
+
+    def ln(*lead):
+        return {"scale": u((*lead, e), 0.1, 1.0), "bias": u((*lead, e))}
+
+    return {"params": {
+        "patch_kernel": u((p * p, e), math.sqrt(3.0 / (p * p))),
+        "patch_bias": u((e,)),
+        "cls_token": u((1, e)),
+        "register_tokens": u((cfg.num_registers, e)),
+        "pos_embed": u((1 + cfg.pos_grid**2, e)),
+        "norm": ln(),
+        "blocks": {
+            "norm1": ln(d), "norm2": ln(d),
+            "ls1_gamma": u((d, e), 0.05, AGREEMENT_LAYERSCALE),
+            "ls2_gamma": u((d, e), 0.05, AGREEMENT_LAYERSCALE),
+            "attn": {"qkv": dense(e, 3 * e), "proj": dense(e, e)},
+            "mlp": {"w12": dense(e, 2 * cfg.ffn_hidden), "w3": dense(cfg.ffn_hidden, e)},
+        },
+    }}
+
+
+def _jax_encoder_leaf(name: str, shape: tuple, levels: int) -> tuple[tuple, tuple]:
+    """A port SAM2 encoder name and shape → its path and shape in the JAX
+    ``ImageEncoder``'s params (``convert.sam2_encoder_from_jax`` inverted)."""
+    parts = name.split(".")
+    if parts[0] == "neck":  # neck.convs.{j}.conv: the JAX laterals run the other way
+        path = (f"neck_conv{levels - 1 - int(parts[2])}",)
+    elif parts[1] in ("pos_embed", "pos_embed_window"):  # (1, C, h, w) -> (h, w, C)
+        return ("trunk", parts[1]), (shape[2], shape[3], shape[1])
+    elif parts[1] == "patch_embed":
+        path = ("trunk", "patch_embed")
+    else:  # trunk.blocks.{i}.<module>
+        module = ".".join(parts[3:-1])
+        names = {"mlp.layers.0": ("mlp_fc1",), "mlp.layers.1": ("mlp_fc2",)}
+        path = ("trunk", f"block{parts[2]}", *names.get(module, tuple(module.split("."))))
+    if parts[-1] == "bias":
+        return (*path, "bias"), shape
+    if len(shape) == 4:  # conv (out, in, kh, kw) -> (kh, kw, in, out)
+        return (*path, "kernel"), (shape[2], shape[3], shape[1], shape[0])
+    if len(shape) == 2:  # linear (out, in) -> (in, out)
+        return (*path, "kernel"), (shape[1], shape[0])
+    return (*path, "scale"), shape  # LayerNorm
+
+
+def hiera_jax_tree() -> dict:
+    """The JAX package's SAM2 image encoder params of ``SAM2Config.large()``
+    (Hiera-L + FPN neck) as ``tools/convert_sam2.py --encoder-only`` writes
+    them: the patch embed with its three input channels, conv kernels
+    ``(kh, kw, in, out)``, Dense kernels ``(in, out)``, position embeddings
+    ``(h, w, C)``, f32. Kernels lecun-uniform, LayerNorm scales 1 ± 0.1, the
+    rest ± 0.02."""
+    from cryovit_tpu_torch.models.sam2.config import SAM2Config
+    from cryovit_tpu_torch.models.sam2.encoder import ImageEncoder
+
+    with torch.device("meta"):
+        template = ImageEncoder(SAM2Config.large(), 3).state_dict()
+    levels = sum(1 for k in template if k.startswith("neck.convs.") and k.endswith("conv.weight"))
+    tree: dict = {}
+    for i, (name, t) in enumerate(template.items()):
+        path, shape = _jax_encoder_leaf(name, tuple(t.shape), levels)
+        seed = [FOUNDATION_SEEDS["sam2"], i]
+        if path[-1] == "kernel":
+            leaf = _filled(shape, math.sqrt(3.0 / math.prod(shape[:-1])), 0.0, seed)
+        else:
+            leaf = _filled(shape, 0.1 if path[-1] == "scale" else 0.02,
+                           1.0 if path[-1] == "scale" else 0.0, seed)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return {"params": tree}
+
+
+FOUNDATION_TREES = {"dinov2": vitg_jax_tree, "sam2": hiera_jax_tree}
+
+
+def _rss_gib() -> float:
+    """This process's resident set now (``/proc/self/statm``), GiB."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+class _RssPeak:
+    """The largest resident set (:func:`_rss_gib`) seen while the block runs,
+    sampled every millisecond on a thread: a spawned process's
+    ``ru_maxrss`` also holds its parent's resident set at the fork, and the
+    card's machine reports no ``VmHWM``."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = _rss_gib(), threading.Event()
+
+        def sample():
+            while not self._stop.wait(1e-3):
+                self.peak = max(self.peak, _rss_gib())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gib())
+
+
+def _written_features(store, path: Path, kind: str):
+    """What ``run_dino`` / ``run_sam`` wrote to ``path``: the fp16
+    features, or the pyramids by key and level."""
+    if kind == "dinov2":
+        if store is not None:
+            return store.read(path, "dino_features")
+        from cryovit_tpu_torch.io.hdf import read_hdf
+
+        return read_hdf(path, key="dino_features")[1]
+    keys = ("backbone_fpn", "vision_pos_enc")
+    if store is not None:
+        arrays = store.files[Path(path)]
+        return {k: [arrays[f"sam_features/{k}/{i}"] for i in range(3)] for k in keys}
+    import h5py
+    import numpy as np
+
+    with h5py.File(path, "r") as f:
+        return {k: [np.asarray(f[f"sam_features/{k}/{i}"]) for i in range(3)] for k in keys}
+
+
+def _foundation_child(_rank: int, workdir: str, device: str) -> None:
+    """The loading process of ``foundation_weights_phase``: for the SAM2
+    encoder, then ViT-g, ``run_sam`` / ``run_dino`` on the phase's tomogram
+    with ``model_dir`` the phase's ``SAM2`` / ``DINOv2`` directory: the
+    loader's seconds, the resident set before it and its peak during it, the
+    launches, and the features against an extractor built in this process from the
+    same tree drawn again from its seed and converted directly
+    (``sam2_encoder_from_jax`` + ``fold_rgb_patch_embed``,
+    ``dinov2_from_jax``), bit for bit. The summary to
+    ``<workdir>/foundation.pt``."""
+    import importlib.util
+
+    import numpy as np
+
+    from cryovit_tpu_torch import compute_dtype, kernels
+    from cryovit_tpu_torch.convert import dinov2_from_jax, sam2_encoder_from_jax
+    from cryovit_tpu_torch.io import load_files_from_path
+    from cryovit_tpu_torch.models.dinov2 import make_dinov2
+    from cryovit_tpu_torch.models.sam2.encoder import fold_rgb_patch_embed, make_image_encoder
+    from cryovit_tpu_torch.run import dino_features, sam_features
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        kernels.load_library()  # built by the parent: this loads it
+    torch.zeros(1, device=dev)  # the CUDA context is part of the resident set before a load
+    work = Path(workdir)
+    files = load_files_from_path(work / "foundation_tomograms")
+    store = _HDF5Store() if importlib.util.find_spec("h5py") is None else None
+    steps = {"sam2": (sam_features, "make_sam_encoder_state", sam_features.run_sam),
+             "dinov2": (dino_features, "load_dinov2_variables", dino_features.run_dino)}
+    out = {}
+    for kind, (module, loader, run) in steps.items():
+        rec = {}
+        real = getattr(module, loader)
+
+        def timed(*args, real=real, rec=rec, **kwargs):
+            rec["rss_before_gib"] = _rss_gib()
+            with _RssPeak() as peak:
+                t0 = time.perf_counter()
+                result = real(*args, **kwargs)
+                rec["load_s"] = time.perf_counter() - t0
+            rec["peak_gib"], rec["rss_after_gib"] = peak.peak, _rss_gib()
+            return result
+
+        patches = [(module, loader, timed)]
+        if store is not None:
+            patches.append((module, "save_feature_hdf", store.save_feature_hdf))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _patched(patches):
+            (written,) = run(files, work / f"foundation_{kind}", batch_size=SLICE_BATCH,
+                             model_dir=work / FOUNDATION_DIRS[kind], device=dev)
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t0
+        rec["launches"] = kernels.launch_counts()
+        got = _written_features(store, written, kind)
+
+        # the direct route: the tree drawn again, converted without the file
+        tree = FOUNDATION_TREES[kind]()
+        if kind == "dinov2":
+            sd = {k: torch.from_numpy(v) for k, v in dinov2_from_jax(tree).items()}
+            del tree
+            extractor = dino_features.DinoExtractor(
+                make_dinov2(sd, device=dev, dtype=compute_dtype(dev)), batch_size=SLICE_BATCH)
+            ((_, _, want),) = dino_features.extract_features(files, extractor)
+            rec["equal"] = bool(np.array_equal(got, want))
+            rec["shapes"], rec["finite"] = [got.shape], bool(np.isfinite(got).all())
+            rec["std"] = float(got.astype(np.float32).std())
+        else:
+            sd = fold_rgb_patch_embed(
+                {k: torch.from_numpy(v) for k, v in sam2_encoder_from_jax(tree).items()})
+            del tree
+            encoder = make_image_encoder(sd, device=dev, dtype=compute_dtype(dev))
+            extractor = sam_features.SamFeatureExtractor(encoder, batch_size=SLICE_BATCH)
+            del encoder
+            ((_, _, want),) = sam_features.extract_sam_features(files, extractor)
+            rec["equal"] = all(np.array_equal(a, b) for k in want
+                               for a, b in zip(got[k], want[k], strict=True))
+            rec["shapes"] = [a.shape for a in got["backbone_fpn"]]
+            rec["finite"] = all(bool(np.isfinite(a).all()) for k in got for a in got[k])
+            rec["std"] = float(np.mean([a.astype(np.float32).std() for a in got["backbone_fpn"]]))
+        out[kind] = rec
+        del sd, extractor, got, want
+        torch.cuda.empty_cache()
+    torch.save(out, work / "foundation.pt")
+
+
+def foundation_weights_phase(dev: torch.device, workdir: Path) -> dict[str, int]:
+    """The JAX package's converted foundation weights at full width: a
+    ViT-g tree as ``tools/convert_dinov2.py`` writes it and a Hiera-L
+    encoder tree as ``tools/convert_sam2.py --encoder-only`` does (both
+    drawn from seeds, f32), written by ``write_flax_msgpack`` to
+    ``<workdir>/DINOv2/dinov2_vitg14_reg.msgpack`` (two leaves over 2^30
+    bytes, so chunked) and ``<workdir>/SAM2/sam2_encoder.msgpack``; then, in
+    a process of its own (``_foundation_child``), ``run_sam`` and
+    ``run_dino`` on a 64×512×512 tomogram from those directories. Checks:
+    exactly 32/32/3 launches of rows 9/10/11 and 40 of row 1, nothing else;
+    the features and pyramids bit for bit those of the directly converted
+    trees, finite, of the serving paths' shapes. Prints each file's GB,
+    draw and write seconds, the loader's seconds and the loading process's
+    host resident set before it and peak during it (the file just written,
+    so its read is warm), beside the card's name and power limit."""
+    import numpy as np
+
+    from cryovit_tpu_torch import kernels
+    from cryovit_tpu_torch.io import write_mrc
+    from cryovit_tpu_torch.run.dino_features import JAX_WEIGHTS
+    from cryovit_tpu_torch.run.sam_features import SAM2_ENCODER_WEIGHTS
+
+    name = gpu_name_and_power()
+    tomo_dir = workdir / "foundation_tomograms"
+    tomo_dir.mkdir()
+    write_mrc(tomo_dir / "synthetic.mrc",
+              np.random.default_rng(33).integers(0, 256, size=(DEPTH, SIDE, SIDE), dtype=np.uint8))
+    weights = {"dinov2": JAX_WEIGHTS, "sam2": SAM2_ENCODER_WEIGHTS}
+    sizes = {}
+    for kind, file in weights.items():
+        t0 = time.perf_counter()
+        tree = FOUNDATION_TREES[kind]()
+        t_draw = time.perf_counter() - t0
+        leaves = []
+        stack = [tree]
+        while stack:
+            node = stack.pop()
+            for v in node.values():
+                (stack if isinstance(v, dict) else leaves).append(v)
+        path = workdir / FOUNDATION_DIRS[kind] / file
+        path.parent.mkdir()
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            write_flax_msgpack(f, tree)
+        t_write = time.perf_counter() - t0
+        sizes[kind] = path.stat().st_size / 1e9
+        chunked = [leaf.shape for leaf in leaves if leaf.nbytes > FLAX_MAX_CHUNK]
+        log("weights", f"{path.relative_to(workdir)}: {sum(v.size for v in leaves) / 1e9:.4f} B "
+            f"f32 params, {sizes[kind]:.3f} GB, {len(chunked)} chunked leaves {chunked}; drawn in "
+            f"{t_draw:.1f} s, written in {t_write:.1f} s")
+        del tree, leaves
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dev_name = f"{dev.type}:0" if dev.type == "cuda" else dev.type
+    torch.multiprocessing.start_processes(_foundation_child, args=(str(workdir), dev_name),
+                                          nprocs=1, start_method="spawn")
+    t_child = time.perf_counter() - t0
+    for kind, file in weights.items():
+        (workdir / FOUNDATION_DIRS[kind] / file).unlink()
+    res = torch.load(workdir / "foundation.pt", weights_only=False)
+    want = {"dinov2": {"flash_attention": 40}, "sam2": SAM_BATCH_LAUNCHES}
+    checks = {}
+    for kind, rec in res.items():
+        label = {"dinov2": "ViT-g run_dino", "sam2": "Hiera-L run_sam"}[kind]
+        log("weights", f"{label} from {FOUNDATION_DIRS[kind]}/{weights[kind]} ({sizes[kind]:.3f} "
+            f"GB): loader {rec['load_s']:.2f} s (read, convert; warm file), the whole call "
+            f"{rec['run_s']:.2f} s; host resident set {rec['rss_before_gib']:.2f} GiB before the "
+            f"load, peak {rec['peak_gib']:.2f} GiB during it (+"
+            f"{rec['peak_gib'] - rec['rss_before_gib']:.2f}; sampled every ms), "
+            f"{rec['rss_after_gib']:.2f} GiB on return; "
+            f"launches { {k: n for k, n in rec['launches'].items() if n} } ({name})")
+        log("weights", f"{label}: shapes {rec['shapes']}, std {rec['std']:.4f}")
+        per_batch = {**dict.fromkeys(rec["launches"], 0), **want[kind]}
+        checks[f"{label}: launches exactly {want[kind]}"] = rec["launches"] == per_batch
+        checks[f"{label}: features bit for bit the directly converted tree's"] = rec["equal"]
+        checks[f"{label}: features finite"] = rec["finite"]
+    checks[f"ViT-g features {[(1536, DEPTH, SIDE // 16, SIDE // 16)]}"] = (
+        res["dinov2"]["shapes"] == [(1536, DEPTH, SIDE // 16, SIDE // 16)])
+    checks[f"Hiera-L pyramids {[(DEPTH, 256, SIDE // s, SIDE // s) for s in (4, 8, 16)]}"] = (
+        res["sam2"]["shapes"] == [(DEPTH, 256, SIDE // s, SIDE // s) for s in (4, 8, 16)])
+    log("weights", f"the loading process took {t_child:.1f} s, its start included ({name})")
+    _report_checks(checks, "foundation weights phase")
+    return {k: res["dinov2"]["launches"][k] + res["sam2"]["launches"][k] for k in kernels.KERNELS}
+
+
 PROFILE_GROUPS = (
     ("port kernels (decoder tail)", ("conv3d_dm", "convt2x_dm", "sum_partials")),
     ("cuDNN / cuBLAS (projection, front convs)",
@@ -4639,6 +5094,8 @@ def main() -> int:
         sam = sam_serving_phase(dev, Path(tmp))
         sam_t = sam_serving_phase(dev, Path(tmp), tiny=True)
         torch.cuda.empty_cache()
+        foundation = foundation_weights_phase(dev, Path(tmp))
+        torch.cuda.empty_cache()
         unet = unet3d_training_phase(dev, Path(tmp))
         torch.cuda.empty_cache()
         sam2, sam2_kv = sam2_training_phase(dev, Path(tmp))
@@ -4649,8 +5106,8 @@ def main() -> int:
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": (serving[name] + training[name] + experiment[name] + sam[name]
-                      + sam_t[name] + unet[name] + sam2[name] + sam2_kv[name]
-                      + sum(rank[name] for rank in parallel)),
+                      + sam_t[name] + foundation[name] + unet[name] + sam2[name]
+                      + sam2_kv[name] + sum(rank[name] for rank in parallel)),
          **{k: results[name][k] for k in keys}}
         for name, (source, replaces) in KERNELS.items()
     ]}
@@ -4691,6 +5148,11 @@ def main() -> int:
         # the kv_cache check's two tracking passes (uncached, cached)
         next(r for r in report["kernels"] if r["name"] == name)["sam2_kv_cache"] = {
             "launches": sam2_kv[name], "per_pass": SAM_BATCH_LAUNCHES[name], "passes": 6}
+    # rows 1 and 9-11 on the JAX package's converted weights (run_dino and
+    # run_sam from a model_dir of flax msgpack files, in a process of their own)
+    for row in report["kernels"]:
+        if foundation[row["name"]]:
+            row["foundation_weights"] = {"launches": foundation[row["name"]]}
     # rows 1, 4-7 and 9-11 on the parallel phase's ranks (one data-parallel
     # and one depth-sharded CryoVIT step, UNet3D's depth-sharded step, SAM2's
     # encoder-split and data-parallel steps, one sharded extraction each)

@@ -21,7 +21,9 @@
   LoRA, prompt predictor; bare or under the family's ``sam`` scope) → the
   reference's trained SAM2 state dict (the layout
   ``cryovit_tpu.train.torch_export_sam2.export_sam2_state_dict`` writes),
-  the names of the port's ``SAM2Model``.
+  the names of the port's ``SAM2Model``; or the partial tree of a converted
+  published checkpoint (``sam2_weights.msgpack``) → the partial state dict
+  :func:`sam2_from_published` gives.
 - :func:`sam2_from_published`: a published sam2 checkpoint's ``model``
   dict → the same names, for every module the checkpoint has; the LoRA
   factors and the prompt predictor are not in it and stay fresh.
@@ -34,9 +36,13 @@ ConvTranspose3d weight ``(in, out, kd, kh, kw)`` with its taps flipped.
 
 from __future__ import annotations
 
+import logging
 from typing import Any
 
 import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
 
 __all__ = [
     "IMAGENET_MEAN",
@@ -61,6 +67,14 @@ def _np(x: Any) -> np.ndarray:
     if hasattr(x, "detach"):
         x = x.detach().float().cpu().numpy()
     return np.asarray(x, dtype=np.float32)
+
+
+def _t(x: Any) -> np.ndarray:
+    """The C-ordered transpose of a 2-D array (a Dense kernel ``(in, out)``
+    as a Linear weight ``(out, in)``), copied by torch's blocked, threaded
+    transpose: numpy's is several times slower on ViT-g's 40 blocks."""
+    x = _np(x)
+    return torch.from_numpy(x if x.flags.writeable else x.copy()).t().contiguous().numpy()
 
 
 def _params(tree: dict) -> dict:
@@ -136,7 +150,7 @@ def dinov2_from_jax(params: dict) -> dict[str, np.ndarray]:
             for k in keys:
                 leaf = leaf[k]
             arr = _np(leaf if index is None else leaf[index])
-            out[name] = np.ascontiguousarray(arr.T if path[-1] == "T" else arr)
+            out[name] = _t(arr) if path[-1] == "T" else np.ascontiguousarray(arr)
     out["norm.weight"] = _np(params["norm"]["scale"])
     out["norm.bias"] = _np(params["norm"]["bias"])
     return out
@@ -179,7 +193,7 @@ def _convt_w(k: Any) -> np.ndarray:
 _WEIGHT = {
     "conv": lambda t: _conv_w(t["kernel"]),
     "convt": lambda t: _convt_w(t["kernel"]),
-    "dense": lambda t: np.ascontiguousarray(_np(t["kernel"]).T),
+    "dense": lambda t: _t(t["kernel"]),
     "norm": lambda t: _np(t["scale"]),  # GroupNorm scale → norm weight
 }
 
@@ -259,7 +273,7 @@ def sam2_encoder_from_jax(params: dict) -> dict[str, np.ndarray]:
         if "proj" in block:
             dense["proj"] = block["proj"]
         for name, tree in dense.items():
-            out[f"{p}.{name}.weight"] = np.ascontiguousarray(_np(tree["kernel"]).T)
+            out[f"{p}.{name}.weight"] = _t(tree["kernel"])
             out[f"{p}.{name}.bias"] = _np(tree["bias"])
         for norm in ("norm1", "norm2"):
             out[f"{p}.{norm}.weight"] = _np(block[norm]["scale"])
@@ -280,7 +294,7 @@ def sam2_encoder_from_published(state_dict: dict[str, Any]) -> dict[str, np.ndar
 
 
 def _dense2(out: dict, prefix: str, tree: dict) -> None:
-    out[f"{prefix}.weight"] = np.ascontiguousarray(_np(tree["kernel"]).T)
+    out[f"{prefix}.weight"] = _t(tree["kernel"])
     if "bias" in tree:
         out[f"{prefix}.bias"] = _np(tree["bias"])
 
@@ -296,16 +310,18 @@ def _ln2(out: dict, prefix: str, tree: dict) -> None:
     out[f"{prefix}.bias"] = _np(tree["bias"])
 
 
-def _attention(out: dict, prefix: str, tree: dict) -> None:
+def _attention(out: dict, prefix: str, tree: dict, lora_bases: bool) -> None:
     """Decoder attention; a LoRA-wrapped q/v keeps its base under ``.proj``
-    and its factors as ``.w_a``/``.w_b`` (a rank-0 one is a plain Linear)."""
+    and its factors as ``.w_a``/``.w_b``. One without factors is a rank-0
+    plain Linear, or with ``lora_bases`` (a converted published checkpoint,
+    which has no factors) the base of a LoRA wrapper the model adds."""
     for name in ("q_proj", "v_proj"):
         sub = tree[name]
         if "w_a" in sub:
             for part in ("proj", "w_a", "w_b"):
                 _dense2(out, f"{prefix}.{name}.{part}", sub[part])
         else:
-            _dense2(out, f"{prefix}.{name}", sub["proj"])
+            _dense2(out, f"{prefix}.{name}.proj" if lora_bases else f"{prefix}.{name}", sub["proj"])
     _dense2(out, f"{prefix}.k_proj", tree["k_proj"])
     _dense2(out, f"{prefix}.out_proj", tree["out_proj"])
 
@@ -315,13 +331,59 @@ def _count(tree: dict, prefix: str, suffix: str = "") -> int:
                and k[len(prefix):len(k) - len(suffix)].isdigit())
 
 
+class _Reads(dict):
+    """A param tree (each level a shallow copy) that records the path of
+    every leaf read from it."""
+
+    def __init__(self, tree: dict, path: str = "", seen: set[str] | None = None):
+        super().__init__(tree)
+        self.path, self.seen = path, set() if seen is None else seen
+
+    def __getitem__(self, key):
+        value, path = super().__getitem__(key), f"{self.path}/{key}"
+        if isinstance(value, dict):
+            return _Reads(value, path, self.seen)
+        self.seen.add(path)
+        return value
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+
+def _leaf_paths(tree: dict, path: str = "") -> set[str]:
+    out = set()
+    for key, value in tree.items():
+        sub = f"{path}/{key}"
+        out |= _leaf_paths(value, sub) if isinstance(value, dict) else {sub}
+    return out
+
+
 def sam2_from_jax(params: dict) -> dict[str, np.ndarray]:
     """JAX ``SAM2Model`` variables → the port's ``SAM2Model`` state dict:
     the SAM2Base tree under ``model.`` and the prompt predictor under
     ``prompt_predictor.``, as the JAX package exports a trained SAM2
-    (``train/torch_export_sam2.py``). Layer counts come from the tree."""
+    (``train/torch_export_sam2.py``). Layer counts come from the tree.
+
+    A tree without a prompt predictor is a converted published checkpoint
+    (the JAX ``convert_sam2_state_dict`` of ``sam2.1_hiera_large.pt``, its
+    ``sam2_weights.msgpack``): the result is then partial, under the names
+    :func:`sam2_from_published` gives the same checkpoint, the decoder's
+    q/v projections as the bases of the LoRA wrappers the model adds.
+    Leaves of the tree that have no place in the port are named in a
+    warning."""
+    tree = _Reads(params)
+    out = _sam2_from_tree(tree)
+    unread = sorted(_leaf_paths(params) - tree.seen)
+    if unread:
+        logger.warning("%d tensors of the JAX SAM2 tree have no place in the port: %s",
+                       len(unread), ", ".join(unread[:12]))
+    return out
+
+
+def _sam2_from_tree(params: dict) -> dict[str, np.ndarray]:
     params = _params(params)
     params = params.get("sam", params)
+    published = "prompt_predictor" not in params
     out = {f"model.image_encoder.{k}": v
            for k, v in sam2_encoder_from_jax(params["image_encoder"]).items()}
 
@@ -356,12 +418,12 @@ def sam2_from_jax(params: dict) -> dict[str, np.ndarray]:
     for i in range(_count(dec, "layer")):
         layer, lp = dec[f"layer{i}"], f"{tp}.layers.{i}"
         for name in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
-            _attention(out, f"{lp}.{name}", layer[name])
+            _attention(out, f"{lp}.{name}", layer[name], published)
         for n in ("norm1", "norm2", "norm3", "norm4"):
             _ln2(out, f"{lp}.{n}", layer[n])
         _dense2(out, f"{lp}.mlp.layers.0", layer["mlp"]["lin1"])
         _dense2(out, f"{lp}.mlp.layers.1", layer["mlp"]["lin2"])
-    _attention(out, f"{tp}.final_attn_token_to_image", dec["final_attn_token_to_image"])
+    _attention(out, f"{tp}.final_attn_token_to_image", dec["final_attn_token_to_image"], published)
     _ln2(out, f"{tp}.norm_final_attn", dec["norm_final"])
 
     me, menc = "model.memory_encoder", params["memory_encoder"]
@@ -403,7 +465,7 @@ def sam2_from_jax(params: dict) -> dict[str, np.ndarray]:
         _dense2(out, "model.obj_ptr_tpos_proj", params["obj_ptr_tpos_proj"])
     out["model.no_obj_ptr"] = _np(params["no_obj_ptr"]).reshape(1, -1)
 
-    if "prompt_predictor" not in params:  # a converted published checkpoint has none
+    if published:
         return out
     pd, pp = "prompt_predictor", params["prompt_predictor"]
 

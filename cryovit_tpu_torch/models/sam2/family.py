@@ -160,27 +160,37 @@ class SAM2(BaseModel):
     # ---- pretrained weights ---------------------------------------------
 
     def load_pretrained(self, sam_dir: str | Path) -> dict[str, np.ndarray] | None:
-        """The published checkpoint in ``sam_dir`` (``sam2.1_hiera_large.pt``,
-        or ``MedSAM2_latest.pt`` for MedSAM) as a partial state dict to
-        overlay on the initial weights (``convert.sam2_from_published``: the
-        LoRA factors and the prompt predictor stay fresh, as the reference
-        applies LoRA after its strict load). None, with a warning, when the
-        directory has no checkpoint: training then starts from random
-        weights, as the JAX package does (no file is downloaded)."""
-        from cryovit_tpu_torch.convert import sam2_from_published
+        """The pretrained weights in ``sam_dir`` as a partial state dict to
+        overlay on the initial weights, from the first file there in the
+        JAX package's order: ``sam2_weights.msgpack`` (its
+        ``tools/convert_sam2.py`` writes it; ``convert.sam2_from_jax``), then
+        the published ``sam2.1_hiera_large.pt`` (``convert.sam2_from_published``).
+        Both give the same names: the LoRA factors and the prompt predictor
+        are in neither and stay fresh, as the reference applies LoRA after
+        its strict load. None, with a warning, when the directory holds
+        neither: training then starts from random weights, as the JAX
+        package does (no file is downloaded). MedSAM is refused when the
+        family is built (ROADMAP C2), so its files are not looked for."""
+        from cryovit_tpu_torch.convert import sam2_from_jax, sam2_from_published
+        from cryovit_tpu_torch.train.msgpack import msgpack_read
 
         sam_dir = Path(sam_dir)
-        name = "MedSAM2_latest.pt" if self.model_type == ModelType.MEDSAM else "sam2.1_hiera_large.pt"
-        path = sam_dir / name
-        if not path.exists():
-            logger.warning("no pretrained SAM2 weights found in %s (looked for %s); "
-                           "training from random initialization", sam_dir, name)
-            return None
-        logger.info("loading the published SAM2 checkpoint %s", path)
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "model" in sd:
-            sd = sd["model"]
-        return sam2_from_published(sd)
+        names = ("sam2_weights.msgpack", "sam2.1_hiera_large.pt")
+        for name in names:
+            path = sam_dir / name
+            if not path.exists():
+                continue
+            if path.suffix == ".msgpack":
+                logger.info("loading the converted SAM2 weights %s", path)
+                return sam2_from_jax(msgpack_read(path))
+            logger.info("loading the published SAM2 checkpoint %s", path)
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            if isinstance(sd, dict) and "model" in sd:
+                sd = sd["model"]
+            return sam2_from_published(sd)
+        logger.warning("no pretrained SAM2 weights found in %s (looked for %s); "
+                       "training from random initialization", sam_dir, ", ".join(names))
+        return None
 
     # ---- inputs, forward and losses ---------------------------------------
 

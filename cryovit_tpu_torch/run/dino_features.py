@@ -24,7 +24,7 @@ from cryovit_tpu_torch import compute_dtype, resolve_device
 from cryovit_tpu_torch.composer import DotDict
 from cryovit_tpu_torch.config import samples as ALL_SAMPLES
 from cryovit_tpu_torch.config import tomogram_exts, validate_dino_config
-from cryovit_tpu_torch.convert import dinov2_from_torch_hub
+from cryovit_tpu_torch.convert import dinov2_from_jax, dinov2_from_torch_hub
 from cryovit_tpu_torch.data.transforms import (
     dino_device_preprocess,
     dino_grid_shape,
@@ -34,11 +34,13 @@ from cryovit_tpu_torch.io import load_data
 from cryovit_tpu_torch.models._init import lecun_normal
 from cryovit_tpu_torch.models.dinov2 import DinoV2, DinoV2Config, make_dinov2
 from cryovit_tpu_torch.parallel.mesh import Mesh, batch_sharding
+from cryovit_tpu_torch.train.msgpack import msgpack_read
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
     "DinoExtractor",
+    "JAX_WEIGHTS",
     "TORCH_HUB_WEIGHTS",
     "default_model_dir",
     "extract_features",
@@ -50,6 +52,10 @@ __all__ = [
     "sweep_sources",
 ]
 
+# the weights files of model_dir, in the order they are tried: the JAX
+# package's (tools/convert_dinov2.py writes it), then the published torch hub
+# checkpoint
+JAX_WEIGHTS = "dinov2_vitg14_reg.msgpack"
 TORCH_HUB_WEIGHTS = "dinov2_vitg14_reg4_pretrain.pth"
 
 
@@ -98,9 +104,13 @@ def load_dinov2_variables(
     """The backbone's state dict (port names) and whether it is random.
 
     ``random_init`` draws weights from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (benchmark and smoke runs). Otherwise the
-    published torch hub checkpoint :data:`TORCH_HUB_WEIGHTS` is read from
-    ``model_dir`` and its patch embed folded to one channel.
+    ``seed`` on ``device`` (benchmark and smoke runs). Otherwise the weights
+    in ``model_dir`` (default ``$CRYOVIT_MODEL_DIR/DINOv2``), as the JAX
+    package reads them: :data:`JAX_WEIGHTS` where it is there, taken as
+    stored (its patch embed is already folded to one channel, ImageNet
+    normalization too unless it was written with ``--no-normalize``), else
+    the published checkpoint :data:`TORCH_HUB_WEIGHTS`, its patch embed
+    folded here.
     """
     cfg = cfg or DinoV2Config.giant()
     device = resolve_device(device)
@@ -108,15 +118,22 @@ def load_dinov2_variables(
         logger.warning("using RANDOM DINOv2 weights (benchmark mode)")
         generator = torch.Generator(device=device).manual_seed(seed)
         return _random_dinov2_state_dict(cfg, generator), True
-    path = Path(model_dir if model_dir is not None else default_model_dir()) / TORCH_HUB_WEIGHTS
-    if not path.exists():
+    model_dir = Path(model_dir if model_dir is not None else default_model_dir())
+    converted, hub = model_dir / JAX_WEIGHTS, model_dir / TORCH_HUB_WEIGHTS
+    if converted.exists():
+        logger.info("loading the converted DINOv2 weights %s", converted)
+        sd = dinov2_from_jax(msgpack_read(converted))
+    elif hub.exists():
+        logger.info("loading the torch hub DINOv2 checkpoint %s", hub)
+        sd = dinov2_from_torch_hub(torch.load(hub, map_location="cpu", weights_only=True))
+    else:
         raise FileNotFoundError(
-            f"DINOv2 weights not found at {path}: place the torch hub "
-            f"checkpoint {TORCH_HUB_WEIGHTS} there (the default directory is "
+            f"DINOv2 weights not found in {model_dir}: neither {JAX_WEIGHTS} (write it "
+            f"once with the JAX package's tools/convert_dinov2.py) nor the torch hub "
+            f"checkpoint {TORCH_HUB_WEIGHTS} is there (the default directory is "
             f"$CRYOVIT_MODEL_DIR/DINOv2)."
         )
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return {k: torch.from_numpy(v) for k, v in dinov2_from_torch_hub(sd).items()}, False
+    return {k: torch.from_numpy(v) for k, v in sd.items()}, False
 
 
 def load_extractor(

@@ -27,7 +27,7 @@ import torch
 from cryovit_tpu_torch import compute_dtype, resolve_device
 from cryovit_tpu_torch.composer import DotDict
 from cryovit_tpu_torch.config import validate_dino_config
-from cryovit_tpu_torch.convert import sam2_encoder_from_published
+from cryovit_tpu_torch.convert import sam2_encoder_from_jax, sam2_encoder_from_published
 from cryovit_tpu_torch.io import load_data
 from cryovit_tpu_torch.models.sam2.config import SAM2Config
 from cryovit_tpu_torch.models.sam2.encoder import (
@@ -40,11 +40,13 @@ from cryovit_tpu_torch.ops.resize import resize_linear_2d
 from cryovit_tpu_torch.parallel.mesh import Mesh, batch_sharding
 from cryovit_tpu_torch.run import dino_features
 from cryovit_tpu_torch.run.dino_features import default_model_dir, save_feature_hdf
+from cryovit_tpu_torch.train.msgpack import msgpack_read
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
     "SAM2_CHECKPOINT",
+    "SAM2_ENCODER_WEIGHTS",
     "SamFeatureExtractor",
     "extract_sam_features",
     "load_sam_encoder",
@@ -53,6 +55,10 @@ __all__ = [
     "run_trainer",
 ]
 
+# the encoder's weights files of model_dir, in the order they are tried: the
+# JAX package's (tools/convert_sam2.py --encoder-only writes it), then the
+# published checkpoint
+SAM2_ENCODER_WEIGHTS = "sam2_encoder.msgpack"
 SAM2_CHECKPOINT = "sam2.1_hiera_large.pt"
 
 
@@ -67,9 +73,12 @@ def make_sam_encoder_state(
     channel.
 
     ``random_init`` draws the weights from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (benchmark and smoke runs). Otherwise the
-    published checkpoint :data:`SAM2_CHECKPOINT` is read from ``model_dir``
-    (default ``$CRYOVIT_MODEL_DIR/SAM2``, ``dino_features.default_model_dir``).
+    ``seed`` on ``device`` (benchmark and smoke runs). Otherwise the weights
+    in ``model_dir`` (default ``$CRYOVIT_MODEL_DIR/SAM2``,
+    ``dino_features.default_model_dir``), as the JAX package reads them:
+    :data:`SAM2_ENCODER_WEIGHTS` where it is there, else the published
+    checkpoint :data:`SAM2_CHECKPOINT`. Both hold the patch embed's three
+    input channels; it is folded here.
     """
     cfg = cfg or SAM2Config.large()
     device = resolve_device(device)
@@ -77,14 +86,22 @@ def make_sam_encoder_state(
         logger.warning("using RANDOM SAM2 encoder weights")
         generator = torch.Generator(device=device).manual_seed(seed)
         return fold_rgb_patch_embed(random_encoder_state_dict(cfg, generator))
-    path = Path(model_dir if model_dir is not None else default_model_dir("SAM2")) / SAM2_CHECKPOINT
-    if not path.exists():
+    model_dir = Path(model_dir if model_dir is not None else default_model_dir("SAM2"))
+    converted, published = model_dir / SAM2_ENCODER_WEIGHTS, model_dir / SAM2_CHECKPOINT
+    if converted.exists():
+        logger.info("loading the converted SAM2 encoder weights %s", converted)
+        sd = sam2_encoder_from_jax(msgpack_read(converted))
+    elif published.exists():
+        logger.info("loading the published SAM2 checkpoint %s", published)
+        ckpt = torch.load(published, map_location="cpu", weights_only=True)
+        sd = sam2_encoder_from_published(ckpt.get("model", ckpt))
+    else:
         raise FileNotFoundError(
-            f"SAM2 weights not found at {path}: place the published checkpoint "
-            f"{SAM2_CHECKPOINT} there (the default directory is $CRYOVIT_MODEL_DIR/SAM2)."
+            f"SAM2 encoder weights not found in {model_dir}: neither {SAM2_ENCODER_WEIGHTS} "
+            f"(write it once with the JAX package's tools/convert_sam2.py --encoder-only) nor "
+            f"the published checkpoint {SAM2_CHECKPOINT} is there (the default directory is "
+            f"$CRYOVIT_MODEL_DIR/SAM2)."
         )
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sam2_encoder_from_published(ckpt.get("model", ckpt))
     return fold_rgb_patch_embed({k: torch.from_numpy(v) for k, v in sd.items()})
 
 

@@ -48,7 +48,7 @@ from cryovit_tpu_torch.models.sam2.config import HieraConfig, SAM2Config
 from cryovit_tpu_torch.models.sam2.family import make_sam2
 from cryovit_tpu_torch.models.sam2.model import SAM2Model
 from cryovit_tpu_torch.models.unet3d import UNet3D, make_unet3d
-from cryovit_tpu_torch.train.msgpack import msgpack_restore
+from cryovit_tpu_torch.train.msgpack import msgpack_read, msgpack_restore
 from cryovit_tpu_torch.types import ModelType
 
 __all__ = ["load_jax_weights", "load_model", "reference_model_cfg", "save_model"]
@@ -103,7 +103,7 @@ def load_jax_weights(path: str | Path, model_type: ModelType | str) -> dict[str,
     """A JAX ``weights.msgpack`` (``cryovit_tpu.train.checkpoint.save_weights``:
     the flax msgpack of a model's variables) as the reference state dict of
     ``model_type``."""
-    return _from_jax(msgpack_restore(Path(path).read_bytes()), ModelType(model_type))
+    return _from_jax(msgpack_read(path), ModelType(model_type))
 
 
 class _Stub:

@@ -16,17 +16,25 @@ Arrays come back as numpy arrays of their dtype, except bfloat16, which
 numpy lacks: its uint16 bits are viewed as a ``torch.bfloat16`` tensor (a
 0-d one for a scalar). Any other ext code, and a dtype that is neither
 numpy's own nor bfloat16 (ml_dtypes' float8, say), is refused.
+
+:func:`msgpack_read` reads a file through ``mmap``: a converted ViT-g is
+~4.5 GB, and the file's pages then stay the page cache's, not a second copy
+in the process. Every array is copied out of the encoded bytes once (a
+chunked array once, by the join of its chunks' views), so the tree owns its
+memory and is writable.
 """
 
 from __future__ import annotations
 
+import mmap
 import struct
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["msgpack_restore"]
+__all__ = ["msgpack_read", "msgpack_restore"]
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _CHUNKED = "__msgpack_chunked_array__"
@@ -118,6 +126,8 @@ def _unpackb(data, raw: bool = False) -> Any:
 
 
 def _ndarray(payload: memoryview) -> np.ndarray | torch.Tensor:
+    """The array of an ext-1 payload: numpy's a read-only view of the
+    encoded bytes (:func:`_own` copies it out), bfloat16 a copy."""
     shape, name, buffer = _unpackb(payload, raw=True)
     name = name.decode("ascii") if isinstance(name, bytes) else name
     if name == "bfloat16":
@@ -125,7 +135,7 @@ def _ndarray(payload: memoryview) -> np.ndarray | torch.Tensor:
         return torch.from_numpy(bits).view(torch.bfloat16)
     if name not in _NUMPY_DTYPES:
         raise ValueError(f"flax msgpack array of dtype {name!r}, which numpy does not know")
-    return np.frombuffer(buffer, np.dtype(name)).reshape(shape).copy()
+    return np.frombuffer(buffer, np.dtype(name)).reshape(shape)
 
 
 def _ext(code: int, payload: memoryview) -> Any:
@@ -145,19 +155,40 @@ def _unchunk(data: dict) -> np.ndarray | torch.Tensor:
     return np.concatenate(chunks).reshape(shape)
 
 
-def _unchunk_leaves(tree: Any) -> Any:
-    """flax's ``_unchunk_array_leaves_in_place``: chunked arrays in nested
-    dicts (not in lists) joined back, in place."""
+def _own(tree: Any) -> Any:
+    """The parsed tree with its arrays copied out of the encoded bytes, in
+    place: flax's ``_unchunk_array_leaves_in_place`` (chunked arrays in
+    nested dicts, not in lists, joined back) and a copy of every other
+    numpy array, wherever it lies."""
     if isinstance(tree, dict):
         if _CHUNKED in tree:
             return _unchunk(tree)
         for key, value in tree.items():
-            if isinstance(value, dict):
-                tree[key] = _unchunk(value) if _CHUNKED in value else _unchunk_leaves(value)
-    return tree
+            if isinstance(value, dict) and _CHUNKED in value:
+                tree[key] = _unchunk(value)
+            else:
+                tree[key] = _own(value) if isinstance(value, (dict, list)) else _copy(value)
+    elif isinstance(tree, list):
+        tree[:] = [_own(v) if isinstance(v, (dict, list)) else _copy(v) for v in tree]
+    return _copy(tree)
+
+
+def _copy(leaf: Any) -> Any:
+    return leaf.copy() if isinstance(leaf, np.ndarray) else leaf
 
 
 def msgpack_restore(encoded: bytes | bytearray | memoryview) -> Any:
     """The tree ``flax.serialization.msgpack_restore(encoded)`` returns
     (arrays as numpy, bfloat16 as torch; see the module docstring)."""
-    return _unchunk_leaves(_unpackb(encoded))
+    return _own(_unpackb(encoded))
+
+
+def msgpack_read(path: str | Path) -> Any:
+    """:func:`msgpack_restore` of the file at ``path``, read through
+    ``mmap``. An empty file raises, as an empty ``encoded`` does."""
+    with open(path, "rb") as f:
+        if not f.seek(0, 2):
+            raise ValueError(f"{path}: truncated msgpack data (empty file)")
+        mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    # unmapped when the last view of it goes: on return, every array is a copy
+    return msgpack_restore(mapped)

@@ -26,7 +26,6 @@ taken into JAX's tree by ``convert_sam2_state_dict``:
 """
 
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -238,11 +237,11 @@ def test_sam2_from_published_matches_the_jax_converter():
 
     cfg = JaxSAM2Config.tiny_test()
     published = _published_full_state_dict(cfg, np.random.default_rng(24))
-    # the JAX converter's tree has rank-0 (published) decoder projections;
-    # the port keeps a LoRA-wrapped projection's base under .proj
-    lora_base = re.compile(r"(transformer\..*(?:attn|token|image)\.[qv]_proj)\.(weight|bias)$")
-    want = {lora_base.sub(r"\1.proj.\2", k): v
-            for k, v in sam2_from_jax(convert_sam2_state_dict(published, cfg)).items()}
+    # the JAX converter's tree has no prompt predictor and no LoRA factors:
+    # sam2_from_jax puts its decoder q/v projections under .proj, where the
+    # port's LoRA wrappers keep their bases, as sam2_from_published does
+    want = sam2_from_jax(convert_sam2_state_dict(published, cfg))
+    assert any(k.endswith(".q_proj.proj.weight") for k in want)
     got = sam2_from_published(published)
     assert set(got) == set(want)
     for k in got:
